@@ -1,0 +1,6 @@
+"""Rasterizer: preprocess, binning, the blend kernels, and the render API."""
+from lightgaussian_tpu_torch.ops.rasterize.api import (  # noqa: F401
+    RenderOutput,
+    default_max_instances,
+    render,
+)

@@ -1,0 +1,303 @@
+"""Tile binning: duplicate splats into a (tile, depth)-sorted instance buffer.
+
+Port of the forward-only part of `lightgaussian_tpu/ops/rasterize/binning.py`,
+in torch ops on the splats' device. Each Gaussian is duplicated once per tile
+that its alpha support touches (the tightened rect of `tile_rect` and the
+exact ellipse-vs-tile test of `_exact_tile_mask`); the duplicates are sorted
+by one (tile | range-adaptive depth) key whose value equals the JAX package's
+u32 key, so `total`, `tile_starts` and each tile's ordered set of Gaussian
+ids equal the JAX package's.
+
+Unlike the JAX package, the instance buffer is sized per frame from the live
+count (one host read of `total`), and holds only live instances, instance-
+major `[M, FEAT_WIDTH]`. A capacity from `max_instances` is still honoured
+the way the JAX package honours it: instances past it are dropped, and
+`total` reports the count before the cut.
+
+The key is held in int64; the depth's float32 bit pattern is read with
+`view(torch.int32)` (depths of binned splats are positive and finite).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from lightgaussian_tpu_torch.ops.rasterize.projection import ALPHA_EPS, Splats
+
+TILE_SIZE = 32  # 32x32 px per tile, as in the JAX package
+
+# Per-instance feature columns the blend kernels read.
+FEAT_MX, FEAT_MY = 0, 1
+FEAT_CA, FEAT_CB, FEAT_CC = 2, 3, 4
+FEAT_R, FEAT_G, FEAT_B = 5, 6, 7
+FEAT_OPA = 8
+FEAT_WIDTH = 9
+
+# The JAX package stores instances in 128-wide chunks; capacities are still
+# rounded to it so both packages cut an overflowing frame at the same slot.
+INST_CHUNK = 128
+
+# The JAX package keeps instance offsets in f32 metadata, exact below 2^24.
+MAX_CAPACITY = 1 << 24
+
+# Rects with at most this many tiles get exact per-tile ellipse tests.
+MAX_MASK_TILES = 32
+
+# Tile pixel-center boxes are inflated by this many pixels before the
+# intersection test, so it stays conservative under f32 rounding.
+_MASK_MARGIN_PX = 0.25
+
+
+class TileGrid(NamedTuple):
+    tiles_x: int
+    tiles_y: int
+    width: int
+    height: int
+
+    @property
+    def num_tiles(self) -> int:
+        return self.tiles_x * self.tiles_y
+
+
+def make_grid(width: int, height: int) -> TileGrid:
+    return TileGrid(
+        tiles_x=-(-width // TILE_SIZE),
+        tiles_y=-(-height // TILE_SIZE),
+        width=width,
+        height=height,
+    )
+
+
+def tile_rect(
+    mean2d: torch.Tensor,
+    radius: torch.Tensor,
+    grid: TileGrid,
+    conic: torch.Tensor | None = None,
+    opacity: torch.Tensor | None = None,
+):
+    """Clamped [lo, hi) tile rectangle per Gaussian.
+
+    Without `conic`/`opacity` this is the square box of the 3-sigma radius.
+    With them, each axis is tightened to the support of eligible alpha
+    (alpha >= ALPHA_EPS), plus a 1 px margin; splats whose peak alpha is
+    below ALPHA_EPS are dropped.
+
+    Returns lo_x, lo_y, hi_x, hi_y (int64) and count (0 where culled).
+    """
+    r = radius.to(torch.float32)
+    alive = radius > 0
+    if conic is not None:
+        ca, cb, cc = conic[:, 0], conic[:, 1], conic[:, 2]
+        det = torch.clamp(ca * cc - cb * cb, min=1e-12)
+        q_max = 2.0 * torch.log(torch.clamp(opacity, min=1e-12) / ALPHA_EPS)
+        alive = alive & (q_max > 0.0)
+        q_max = torch.clamp(q_max, min=0.0)
+        rx = torch.minimum(r, torch.sqrt(q_max * cc / det) + 1.0)
+        ry = torch.minimum(r, torch.sqrt(q_max * ca / det) + 1.0)
+    else:
+        rx = ry = r
+
+    def edge(v, lim):
+        return torch.clamp(v, 0, lim).to(torch.int64)
+
+    lo_x = edge(torch.floor((mean2d[:, 0] - rx) / TILE_SIZE), grid.tiles_x)
+    hi_x = edge(torch.floor((mean2d[:, 0] + rx) / TILE_SIZE) + 1, grid.tiles_x)
+    lo_y = edge(torch.floor((mean2d[:, 1] - ry) / TILE_SIZE), grid.tiles_y)
+    hi_y = edge(torch.floor((mean2d[:, 1] + ry) / TILE_SIZE) + 1, grid.tiles_y)
+    area = torch.clamp(hi_x - lo_x, min=0) * torch.clamp(hi_y - lo_y, min=0)
+    count = torch.where(alive, area, 0)
+    return lo_x, lo_y, hi_x, hi_y, count
+
+
+def _exact_tile_mask(
+    splats: Splats,
+    lo_x: torch.Tensor,
+    lo_y: torch.Tensor,
+    hi_x: torch.Tensor,
+    rect_count: torch.Tensor,
+):
+    """Exact ellipse-vs-tile intersection masks over row-major rect slots.
+
+    A tile is kept iff the minimum of q(dx, dy) = ca*dx^2 + 2*cb*dx*dy +
+    cc*dy^2 over its margin-inflated pixel box is <= q_max =
+    2*ln(opa/ALPHA_EPS): zero if the mean is inside the box, else the least
+    of the four clamped edge minima. Dropped tiles hold no eligible pixel.
+
+    Returns (mask int64 [N] of up to 32 bits, count int64 [N], use_mask bool
+    [N]); where `use_mask` is False (rects of more than 32 tiles) the mask is
+    0 and `count` is the rect count.
+    """
+    ca, cb, cc = splats.conic[:, 0], splats.conic[:, 1], splats.conic[:, 2]
+    q_max = 2.0 * torch.log(torch.clamp(splats.opacity, min=1e-12) / ALPHA_EPS)
+    use_mask = (rect_count > 0) & (rect_count <= MAX_MASK_TILES)
+
+    w = torch.clamp(hi_x - lo_x, min=1)
+    j = torch.arange(MAX_MASK_TILES, dtype=torch.int64, device=lo_x.device)[None, :]
+    tx = lo_x[:, None] + j % w[:, None]
+    ty = lo_y[:, None] + j // w[:, None]
+    ts = float(TILE_SIZE)
+    x0 = tx.to(torch.float32) * ts - _MASK_MARGIN_PX
+    x1 = x0 + (ts - 1.0 + 2.0 * _MASK_MARGIN_PX)
+    y0 = ty.to(torch.float32) * ts - _MASK_MARGIN_PX
+    y1 = y0 + (ts - 1.0 + 2.0 * _MASK_MARGIN_PX)
+    mx = splats.mean2d[:, 0:1]
+    my = splats.mean2d[:, 1:2]
+    caj, cbj, ccj = ca[:, None], cb[:, None], cc[:, None]
+
+    def edge_x(xf):  # min over the edge x == xf, y free in the box
+        dx = xf - mx
+        dy = torch.minimum(
+            torch.maximum(-cbj * dx / torch.clamp(ccj, min=1e-12), y0 - my), y1 - my
+        )
+        return (caj * dx + 2.0 * cbj * dy) * dx + ccj * dy * dy
+
+    def edge_y(yf):
+        dy = yf - my
+        dx = torch.minimum(
+            torch.maximum(-cbj * dy / torch.clamp(caj, min=1e-12), x0 - mx), x1 - mx
+        )
+        return (caj * dx + 2.0 * cbj * dy) * dx + ccj * dy * dy
+
+    q_min = torch.minimum(
+        torch.minimum(edge_x(x0), edge_x(x1)), torch.minimum(edge_y(y0), edge_y(y1))
+    )
+    inside = (mx >= x0) & (mx <= x1) & (my >= y0) & (my <= y1)
+    q_min = torch.where(inside, 0.0, q_min)
+
+    in_rect = j < rect_count[:, None]
+    keep = in_rect & ((q_min <= q_max[:, None]) | ~use_mask[:, None])
+    count = torch.where(use_mask, keep.sum(dim=1), rect_count)
+    mask = torch.where(use_mask, (keep.to(torch.int64) << j).sum(dim=1), 0)
+    return mask, count, use_mask
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int64 holding a value below 2^32 (SWAR count)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def _kth_set_bit(mask: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Index of the (k+1)-th set bit of a 32-bit mask (int64 tensors);
+    callers guarantee k < popcount(mask). Branch-free binary search."""
+    word = mask
+    base = torch.zeros_like(k)
+    for wdt in (16, 8, 4, 2, 1):
+        low = word & ((1 << wdt) - 1)
+        c = _popcount32(low)
+        go_hi = k >= c
+        word = torch.where(go_hi, word >> wdt, low)
+        k = k - torch.where(go_hi, c, 0)
+        base = base + torch.where(go_hi, wdt, 0)
+    return base
+
+
+@dataclasses.dataclass(frozen=True)
+class Binning:
+    """(tile, depth)-sorted live instances and per-tile ranges.
+
+    Tile t owns instances [tile_starts[t], tile_starts[t+1]) of `inst`.
+    """
+
+    inst: torch.Tensor  # [M, FEAT_WIDTH] f32, M = min(total, capacity)
+    tile_starts: torch.Tensor  # [T+1] int32
+    total: int  # live instances before any capacity cut
+    gid_sorted: torch.Tensor  # [M] int64 sorted position -> Gaussian id
+
+
+def instance_capacity(max_instances: int) -> int:
+    """Instance capacity: the live-instance budget rounded to whole chunks."""
+    cap = ((max_instances + INST_CHUNK - 1) // INST_CHUNK) * INST_CHUNK
+    if cap > MAX_CAPACITY:
+        raise ValueError(f"instance capacity {cap} exceeds MAX_CAPACITY {MAX_CAPACITY}")
+    return cap
+
+
+def pack_features(splats: Splats) -> torch.Tensor:
+    """[N, FEAT_WIDTH] feature rows in Gaussian order."""
+    return torch.cat(
+        [splats.mean2d, splats.conic, splats.color, splats.opacity[:, None]], dim=1
+    ).to(torch.float32)
+
+
+def sort_key_bits(grid: TileGrid) -> int:
+    """Bits of the 32-bit (tile | depth) key given to depth: the tile id takes
+    the bits it needs, depth the rest (see `bin_splats`)."""
+    tile_bits = max(int(grid.num_tiles + 1).bit_length(), 1)
+    return 32 - tile_bits
+
+
+def bin_splats(splats: Splats, grid: TileGrid, max_instances: int) -> Binning:
+    """Render-only binning (the JAX package's `forward_only=True`; the
+    backward's `pre_pos` comes with the training slice)."""
+    dev = splats.mean2d.device
+    n = splats.mean2d.shape[0]
+    cap = instance_capacity(max_instances)
+    lo_x, lo_y, hi_x, _hi_y, rect_count = tile_rect(
+        splats.mean2d, splats.radius, grid, conic=splats.conic, opacity=splats.opacity
+    )
+    mask, count, _use_mask = _exact_tile_mask(splats, lo_x, lo_y, hi_x, rect_count)
+
+    cum = torch.cumsum(count, dim=0)
+    total = int(cum[-1]) if n else 0
+    m = min(total, cap)
+    num_tiles = grid.num_tiles
+    if m == 0:
+        return Binning(
+            inst=torch.zeros((0, FEAT_WIDTH), dtype=torch.float32, device=dev),
+            tile_starts=torch.zeros(num_tiles + 1, dtype=torch.int32, device=dev),
+            total=total,
+            gid_sorted=torch.zeros(0, dtype=torch.int64, device=dev),
+        )
+
+    # Instance slot -> source Gaussian; slots past the capacity are cut.
+    gid = torch.repeat_interleave(
+        torch.arange(n, device=dev), count, output_size=total
+    )[:m]
+    offsets = cum - count
+    local = torch.arange(m, device=dev) - offsets[gid]
+    # The (local+1)-th surviving bit of the exact-intersection mask, or the
+    # rect slot itself on the >32-tile fallback (mask == 0).
+    g_mask = mask[gid]
+    local = torch.where(g_mask > 0, _kth_set_bit(g_mask, local), local)
+    rect_w = torch.clamp(hi_x - lo_x, min=1)[gid]
+    tile = (lo_y[gid] + local // rect_w) * grid.tiles_x + (lo_x[gid] + local % rect_w)
+
+    # Range-adaptive depth quantization: subtract the frame's least depth
+    # bit pattern and shift only as far as the frame's depth range needs.
+    depth_bits = sort_key_bits(grid)
+    dep_raw = splats.depth.view(torch.int32).to(torch.int64)[gid]
+    rel = dep_raw - dep_raw.min()
+    pow2 = 1 << torch.arange(33, dtype=torch.int64, device=dev)
+    bits_needed = (rel.max() >= pow2).sum()  # bit length; 0 when depths are equal
+    shift = torch.clamp(bits_needed - depth_bits, min=0)
+    key = (tile << depth_bits) | (rel >> shift)
+
+    key_s, order = torch.sort(key, stable=True)
+    gid_s = gid[order]
+    tile_s = key_s >> depth_bits
+    tile_starts = torch.searchsorted(
+        tile_s, torch.arange(num_tiles + 1, dtype=torch.int64, device=dev), side="left"
+    ).to(torch.int32)
+
+    inst = pack_features(splats)[gid_s].contiguous()
+    return Binning(inst=inst, tile_starts=tile_starts, total=total, gid_sorted=gid_s)
+
+
+def snug_capacity(live: int) -> int:
+    """Right-sized instance capacity for a measured live count: 1.4x the
+    live instances, at least 16k, rounded to 8k (64k above 500k live)."""
+    cap = max(int(live * 1.4), 1 << 14)
+    quantum = 65536 if cap > 500_000 else 8192
+    return ((cap + quantum - 1) // quantum) * quantum
+
+
+def estimate_max_instances(num_gaussians: int) -> int:
+    """Instance-capacity heuristic of the JAX package (8 tiles a Gaussian)."""
+    m = int(num_gaussians * 8.0)
+    m = min(max(m, 1 << 16), MAX_CAPACITY)
+    return ((m + INST_CHUNK - 1) // INST_CHUNK) * INST_CHUNK
