@@ -1,7 +1,7 @@
 """Configuration dataclasses: the reference's flag groups with the same names
-and defaults (port of the model and pipeline groups of
-`lightgaussian_tpu/config.py`; the optimisation group comes with the
-training slice)."""
+and defaults (port of the model, pipeline and optimisation groups of
+`lightgaussian_tpu/config.py`; `TrainConfig` comes with the training
+loop)."""
 from __future__ import annotations
 
 import dataclasses
@@ -24,3 +24,23 @@ class PipelineParams:
     convert_SHs_python: bool = False
     compute_cov3D_python: bool = False
     debug: bool = False
+
+
+@dataclasses.dataclass
+class OptimizationParams:
+    iterations: int = 30_000
+    position_lr_init: float = 0.00016
+    position_lr_final: float = 0.0000016
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 30_000
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.05
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    percent_dense: float = 0.01
+    lambda_dssim: float = 0.2
+    densification_interval: int = 100
+    opacity_reset_interval: int = 3000
+    densify_from_iter: int = 500
+    densify_until_iter: int = 15_000
+    densify_grad_threshold: float = 0.0002

@@ -1,9 +1,15 @@
-"""Carry scenes and cameras across from host arrays.
+"""Carry scenes, cameras and train states across as host arrays.
 
-The JAX package's `GaussianScene` and `Camera` are dataclasses of arrays; a
-caller that holds one hands its fields over as numpy arrays, and these
-functions build the port's counterpart on a device. Both packages then
-compute from the same bits.
+The JAX package's `GaussianScene`, `Camera` and `TrainState` are dataclasses
+of arrays; a caller that holds one hands its fields over as numpy arrays,
+and these functions build the port's counterpart on a device. Both packages
+then compute from the same bits. The `*_to_numpy` functions go the other
+way, to the same layout.
+
+A train state travels as a dict: "scene" (the scene's parameter arrays,
+"alive", "active_sh_degree", "max_sh_degree"), "mu" and "nu" (Adam's moments
+by parameter), "count" (Adam's step count), "step", and the densification
+statistics "max_radii2d", "xyz_grad_accum" and "denom".
 """
 from __future__ import annotations
 
@@ -12,7 +18,15 @@ import torch
 
 from lightgaussian_tpu_torch.models.camera import Camera
 from lightgaussian_tpu_torch.models.gaussians import GaussianScene
+from lightgaussian_tpu_torch.train.optim import AdamState
+from lightgaussian_tpu_torch.train.state import TrainState
 from lightgaussian_tpu_torch.utils.device import resolve_device
+
+STAT_FIELDS = ("max_radii2d", "xyz_grad_accum", "denom")
+
+
+def _np(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
 
 
 def scene_from_numpy(
@@ -64,4 +78,45 @@ def camera_from_numpy(
         tan_fovy=f32(tan_fovy),
         width=int(width),
         height=int(height),
+    )
+
+
+def scene_to_numpy(scene: GaussianScene) -> dict:
+    """The scene's parameter arrays, "alive" and its SH degrees."""
+    out = {k: _np(v) for k, v in scene.params().items()}
+    out.update(alive=_np(scene.alive), active_sh_degree=scene.active_sh_degree,
+               max_sh_degree=scene.max_sh_degree)
+    return out
+
+
+def train_state_from_numpy(arrays: dict, device: str | torch.device = "cuda") -> TrainState:
+    """A TrainState from the dict layout of this module's docstring."""
+    dev = resolve_device(device)
+    s = arrays["scene"]
+    scene = scene_from_numpy(
+        {k: s[k] for k in GaussianScene.PARAM_FIELDS}, s["alive"], s["active_sh_degree"],
+        s["max_sh_degree"], device=dev,
+    )
+
+    def f32(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
+
+    opt = AdamState(
+        mu={k: f32(arrays["mu"][k]) for k in GaussianScene.PARAM_FIELDS},
+        nu={k: f32(arrays["nu"][k]) for k in GaussianScene.PARAM_FIELDS},
+        count=int(arrays["count"]),
+    )
+    return TrainState(scene=scene, opt=opt, step=int(arrays["step"]),
+                      **{k: f32(arrays[k]) for k in STAT_FIELDS})
+
+
+def train_state_to_numpy(state: TrainState) -> dict:
+    """The dict layout of this module's docstring, on the host."""
+    return dict(
+        scene=scene_to_numpy(state.scene),
+        mu={k: _np(v) for k, v in state.opt.mu.items()},
+        nu={k: _np(v) for k, v in state.opt.nu.items()},
+        count=state.opt.count,
+        step=state.step,
+        **{k: _np(getattr(state, k)) for k in STAT_FIELDS},
     )

@@ -53,7 +53,7 @@ class Scene:
         if not self.loaded_iter:
             raise NotImplementedError(
                 "initialising a scene from its point cloud needs the 3-NN scale "
-                "init of the training slice (ROADMAP.md, queue A); pass "
+                "init of the CLI-trainer slice (ROADMAP.md, queue A); pass "
                 "load_iteration to render a saved iteration"
             )
 

@@ -78,10 +78,17 @@ class Camera:
     height: int
     # Optional ground-truth image [3, H, W] in [0, 1].
     gt_image: Optional[torch.Tensor] = None
+    # Optional SSIM moments (B(gt), B(gt^2)) of the ground truth
+    # (`losses.precompute_ssim_target_stats`): the ground truth never
+    # changes during training, so its two blur planes are computed once.
+    gt_ssim_stats: Optional[tuple] = None
 
     def with_gt(self, img) -> "Camera":
         gt = torch.as_tensor(img, dtype=torch.float32).to(self.world_view.device)
         return dataclasses.replace(self, gt_image=gt)
+
+    def with_gt_ssim_stats(self, stats) -> "Camera":
+        return dataclasses.replace(self, gt_ssim_stats=stats)
 
     def _pixels(self, n: int) -> torch.Tensor:
         # `int / tensor` is a reciprocal times the int in torch; a true

@@ -8,7 +8,7 @@ checkpoints and renders compare slot for slot. Parameterization: log-scales
 coefficients.
 
 `from_point_cloud` needs the 3-NN scale initialisation (`ops/knn`), which
-comes with the training slice.
+comes with the CLI-trainer slice (ROADMAP A2).
 """
 from __future__ import annotations
 
@@ -54,6 +54,30 @@ class GaussianScene:
 
     def num_alive(self) -> int:
         return int(self.alive.sum())
+
+    # ---- trainable-parameter view ----
+    def params(self) -> dict[str, torch.Tensor]:
+        return {k: getattr(self, k) for k in self.PARAM_FIELDS}
+
+    def with_params(self, params: dict[str, torch.Tensor]) -> "GaussianScene":
+        return dataclasses.replace(self, **params)
+
+    # ---- SH degree schedule ----
+    def one_up_sh_degree(self) -> "GaussianScene":
+        if self.active_sh_degree < self.max_sh_degree:
+            return dataclasses.replace(self, active_sh_degree=self.active_sh_degree + 1)
+        return self
+
+    def truncate_sh(self, new_max_degree: int) -> "GaussianScene":
+        """Drop SH coefficients above `new_max_degree` (the distillation
+        student's start)."""
+        k_new = sh_ops.num_sh_coeffs(new_max_degree) - 1
+        return dataclasses.replace(
+            self,
+            sh_rest=self.sh_rest[:, :k_new, :],
+            max_sh_degree=new_max_degree,
+            active_sh_degree=min(self.active_sh_degree, new_max_degree),
+        )
 
 
 def empty_scene(

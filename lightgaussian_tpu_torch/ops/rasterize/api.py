@@ -4,7 +4,9 @@ Port of `lightgaussian_tpu/ops/rasterize/api.py`: `render(scene, camera, bg)`
 returns a RenderOutput with the image, final transmittance, per-Gaussian
 radii and visibility. `method` selects "tiled" (binning + the CUDA blend
 kernels; plain torch on the CPU) or "reference" (the plain oracle).
-`fast=True` selects the render-only kernel for inference callers.
+`fast=True` selects the render-only kernel for inference callers. The
+default exact path is differentiable in the scene's parameters, `bg` and
+`mean2d_offset` (the training step's path).
 
 Cached binning (trajectory reuse) and `count_render` (GSS statistics) come
 with later slices.
@@ -22,6 +24,7 @@ from lightgaussian_tpu_torch.ops.rasterize import reference as ref_mod
 from lightgaussian_tpu_torch.ops.rasterize import tiled as tiled_mod
 from lightgaussian_tpu_torch.ops.rasterize.binning import estimate_max_instances
 from lightgaussian_tpu_torch.ops.rasterize.projection import preprocess
+from lightgaussian_tpu_torch.utils import stage_marks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +64,7 @@ def render(
         colors_precomp=colors_precomp,
         cov3d_precomp=cov3d_precomp,
     )
+    stage_marks.mark("preprocess")
     if method == "reference":
         image, final_t = ref_mod.blend_reference(splats, camera.width, camera.height, bg)
         total = 0

@@ -1,6 +1,6 @@
 """Tile binning: duplicate splats into a (tile, depth)-sorted instance buffer.
 
-Port of the forward-only part of `lightgaussian_tpu/ops/rasterize/binning.py`,
+Port of the binning of `lightgaussian_tpu/ops/rasterize/binning.py`,
 in torch ops on the splats' device. Each Gaussian is duplicated once per tile
 that its alpha support touches (the tightened rect of `tile_rect` and the
 exact ellipse-vs-tile test of `_exact_tile_mask`); the duplicates are sorted
@@ -232,8 +232,11 @@ def sort_key_bits(grid: TileGrid) -> int:
 
 
 def bin_splats(splats: Splats, grid: TileGrid, max_instances: int) -> Binning:
-    """Render-only binning (the JAX package's `forward_only=True`; the
-    backward's `pre_pos` comes with the training slice)."""
+    """Binning for the blends and the blend backward. The backward needs
+    only `gid_sorted` (its kernel adds each instance's gradient to its
+    Gaussian), so the JAX package's `pre_pos` permutation, `gauss_cum` and
+    `segment_reduce_pre`, a TPU layout for an atomics-free reduce, have no
+    counterpart here."""
     dev = splats.mean2d.device
     n = splats.mean2d.shape[0]
     cap = instance_capacity(max_instances)

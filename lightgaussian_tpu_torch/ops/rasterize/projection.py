@@ -46,7 +46,7 @@ def preprocess(
     """Project all Gaussians to screen space.
 
     `mean2d_offset` ([N, 2], NDC units) is added to the projected NDC centers
-    (the training slice differentiates through it for densification).
+    (the training step differentiates through it for densification).
     `colors_precomp` / `cov3d_precomp` override the SH colors and the
     covariance built from scales and rotations.
     """

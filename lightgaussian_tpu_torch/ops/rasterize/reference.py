@@ -11,7 +11,7 @@ T_i*(1-alpha_i) >= T_EPS is monotone in i, so "apply iff it passes" equals
 the sequential frozen-T rule.
 
 Slow (O(N * H * W)): the test oracle for tiny scenes. The per-Gaussian
-counts (`with_counts`) come with the GSS slice.
+counts (`with_counts`) come with the CLI-trainer slice (ROADMAP A2).
 """
 from __future__ import annotations
 

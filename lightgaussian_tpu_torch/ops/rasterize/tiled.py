@@ -1,19 +1,34 @@
 """Tiled blend: binning plus the blend kernels, assembled into an image.
 
-Port of the forward of `lightgaussian_tpu/ops/rasterize/tiled.py`
-(`blend_tiled`, `blend_tiled_fast`). The backward (an autograd.Function over
-the exact blend) comes with the training slice; until then both blends
-refuse inputs that require a gradient rather than return an image that
-silently carries none.
+Port of `lightgaussian_tpu/ops/rasterize/tiled.py` (`blend_tiled`,
+`blend_tiled_fast`). `blend_tiled` is differentiable: a
+`torch.autograd.Function` whose forward is the exact blend (B1) and whose
+backward runs the backward kernel (B2) over the forward's binning, with
+the per-pixel remaining-contribution seed of the JAX VJP (`tiled.py:66-122`
+there). The boundary sits after the (autograd-friendly) preprocess: inputs
+are screen-space splats. The render-only blend has no backward, as in the
+JAX package, and refuses inputs that require a gradient.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from lightgaussian_tpu_torch.ops.rasterize import binning as binning_mod
 from lightgaussian_tpu_torch.ops.rasterize import blend as blend_mod
-from lightgaussian_tpu_torch.ops.rasterize.binning import TILE_SIZE, make_grid
+from lightgaussian_tpu_torch.ops.rasterize.binning import (
+    FEAT_B,
+    FEAT_CA,
+    FEAT_CC,
+    FEAT_MX,
+    FEAT_MY,
+    FEAT_OPA,
+    FEAT_R,
+    TILE_SIZE,
+    make_grid,
+)
 from lightgaussian_tpu_torch.ops.rasterize.projection import Splats
+from lightgaussian_tpu_torch.utils import stage_marks
 
 
 def _assemble_image(tile_planes: torch.Tensor, grid) -> torch.Tensor:
@@ -24,6 +39,14 @@ def _assemble_image(tile_planes: torch.Tensor, grid) -> torch.Tensor:
     return x.reshape(c, grid.tiles_y * TILE_SIZE, grid.tiles_x * TILE_SIZE)
 
 
+def _tile_image(image: torch.Tensor, grid) -> torch.Tensor:
+    """[C, H, W] -> [T, C, PIX] per-tile planes, zero-padded to the grid."""
+    c, h, w = image.shape
+    x = F.pad(image, (0, grid.tiles_x * TILE_SIZE - w, 0, grid.tiles_y * TILE_SIZE - h))
+    x = x.reshape(c, grid.tiles_y, TILE_SIZE, grid.tiles_x, TILE_SIZE)
+    return x.permute(1, 3, 0, 2, 4).reshape(grid.num_tiles, c, TILE_SIZE * TILE_SIZE).contiguous()
+
+
 def _compose(tile_rgb, tile_t, bg, grid, width: int, height: int):
     img_pad = _assemble_image(tile_rgb, grid)
     t_pad = _assemble_image(tile_t, grid)[0]
@@ -31,23 +54,49 @@ def _compose(tile_rgb, tile_t, bg, grid, width: int, height: int):
     return image, t_pad[:height, :width]
 
 
-def _refuse_grad(splats: Splats, bg: torch.Tensor) -> None:
-    tensors = (splats.mean2d, splats.conic, splats.color, splats.opacity, bg)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the tiled blend has no backward yet (it comes with the training "
-            "slice, ROADMAP A slice 2); render under torch.no_grad() or detach"
+def _detached(splats: Splats) -> Splats:
+    return Splats(**{k: v.detach() for k, v in vars(splats).items()})
+
+
+class _ExactBlend(torch.autograd.Function):
+    """(mean2d, conic, color, opacity, bg) -> (image, final_T) over a
+    binning made beforehand; depth and radius only order and place the
+    instances and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, mean2d, conic, color, opacity, bg, b, grid, width, height):
+        tile_rgb, tile_t = blend_mod.blend_forward(b.tile_starts, b.inst, grid)
+        stage_marks.mark("B1")
+        image, final_t = _compose(tile_rgb, tile_t, bg, grid, width, height)
+        stage_marks.mark("compose")
+        ctx.save_for_backward(image, final_t)
+        ctx.binning, ctx.grid, ctx.n = b, grid, mean2d.shape[0]
+        return image, final_t
+
+    @staticmethod
+    def backward(ctx, g_image, g_t):
+        stage_marks.mark("loss backward")
+        image, final_t = ctx.saved_tensors
+        b, grid = ctx.binning, ctx.grid
+        if g_image is None:
+            g_image = torch.zeros_like(image)
+        if g_t is None:
+            g_t = torch.zeros_like(final_t)
+        # Per-pixel "remaining contribution" seed: dot(rendered colour incl.
+        # background, g) plus the direct cotangent of final_T (both decay as
+        # -x / (1 - alpha_i) along the walk).
+        r = (image * g_image).sum(dim=0) + final_t * g_t
+        grads = blend_mod.blend_backward(
+            b.tile_starts, b.inst, b.gid_sorted, _tile_image(g_image.contiguous(), grid),
+            _tile_image(r[None].contiguous(), grid), grid, ctx.n,
         )
-
-
-def _blend(splats, bg, width, height, max_instances, fast: bool):
-    _refuse_grad(splats, bg)
-    grid = make_grid(width, height)
-    b = binning_mod.bin_splats(splats, grid, max_instances)
-    kernel = blend_mod.blend_forward_fast if fast else blend_mod.blend_forward
-    tile_rgb, tile_t = kernel(b.tile_starts, b.inst, grid)
-    image, final_t = _compose(tile_rgb, tile_t, bg, grid, width, height)
-    return image, final_t, b.total
+        d_bg = (final_t[None] * g_image).sum(dim=(1, 2))
+        stage_marks.mark("B2 + reduce")
+        return (
+            grads[:, FEAT_MX:FEAT_MY + 1], grads[:, FEAT_CA:FEAT_CC + 1],
+            grads[:, FEAT_R:FEAT_B + 1], grads[:, FEAT_OPA], d_bg,
+            None, None, None, None,
+        )
 
 
 def blend_tiled(
@@ -57,9 +106,17 @@ def blend_tiled(
     height: int,
     max_instances: int,
 ):
-    """Exact blend (kernel B1). Returns (image [3,H,W], final_T [H,W], total)
-    with `total` the live instance count (compare with `max_instances`)."""
-    return _blend(splats, bg, width, height, max_instances, fast=False)
+    """Exact blend (kernel B1; backward B2). Returns (image [3,H,W], final_T
+    [H,W], total) with `total` the live instance count (compare with
+    `max_instances`). Differentiable in mean2d, conic, color, opacity and bg."""
+    grid = make_grid(width, height)
+    with torch.no_grad():
+        b = binning_mod.bin_splats(_detached(splats), grid, max_instances)
+    stage_marks.mark("binning")
+    image, final_t = _ExactBlend.apply(
+        splats.mean2d, splats.conic, splats.color, splats.opacity, bg, b, grid, width, height
+    )
+    return image, final_t, b.total
 
 
 def blend_tiled_fast(
@@ -70,5 +127,19 @@ def blend_tiled_fast(
     max_instances: int,
 ):
     """Render-only blend (kernel B6): the inference path. The image differs
-    from `blend_tiled`'s only on saturated pixels, by under 1e-2."""
-    return _blend(splats, bg, width, height, max_instances, fast=True)
+    from `blend_tiled`'s only on saturated pixels, by under 1e-2. It has no
+    backward, as in the JAX package: inputs that require a gradient raise."""
+    tensors = (splats.mean2d, splats.conic, splats.color, splats.opacity, bg)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "the render-only blend has no backward; render with fast=False for "
+            "gradients, or under torch.no_grad()"
+        )
+    grid = make_grid(width, height)
+    b = binning_mod.bin_splats(splats, grid, max_instances)
+    stage_marks.mark("binning")
+    tile_rgb, tile_t = blend_mod.blend_forward_fast(b.tile_starts, b.inst, grid)
+    stage_marks.mark("B6")
+    image, final_t = _compose(tile_rgb, tile_t, bg, grid, width, height)
+    stage_marks.mark("compose")
+    return image, final_t, b.total
