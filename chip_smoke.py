@@ -5,7 +5,7 @@ Usage: python3 chip_smoke.py        (from the repository root; needs one CUDA ca
 
 Phases, each of which exits non-zero on failure:
   1. The card (nvidia-smi name and power limit) and the kernels' build: the
-     three CUDA sources compiled at once, one nvcc each, with ptxas's
+     six CUDA sources compiled at once, one nvcc each, with ptxas's
      registers, spills and shared memory for every kernel.
   2. Each kernel against its plain PyTorch version on the card:
      - the exact and render-only blends (B1, B6) on the 2048-Gaussian
@@ -22,14 +22,30 @@ Phases, each of which exits non-zero on failure:
      - the SSIM blurs B3, B4 and B7 at (15,37,53), (3,64,96) and
        (9,1080,1920): atol 1e-5;
      - the SSIM value (atol 1e-6) and its gradient (1e-5 of its largest
-       magnitude) on both paths, the kernels against the plain versions.
+       magnitude) on both paths, the kernels against the plain versions;
+     - the counting blend (B5) on the same two scenes: image and T at 2e-4,
+       importance at 1e-4 (the JAX suite's tolerance) + 1e-6 relative, hit
+       counts equal; and
+       `count_render(method="tiled")` against `method="reference"` likewise;
+     - the chunk transpose (B8) against `permute` bit for bit at (5, 16,
+       128), (3, 40, 128) and (7680, 16, 128);
+     - the issue-rate probe's seven chains (P) against the same recurrences
+       in elementwise torch: the float chains bit for bit, the approximate
+       units, the shuffle sum and the scan at 1e-5.
   3. The serving path at full width: a 300k-Gaussian SH-3 scene at
      1920x1080 saved as a PLY, a Blender-format source with 8 test cameras,
      and `lightgaussian_tpu_torch.cli.render_sets` writing their PNGs through
      the render-only kernel. Then the exact render path (`render()`'s
      default) over the same cameras. Launch counts are read around each path.
-     The blend kernels are held against their plain versions at these shapes
-     and timed, and so is the render, split at its stage marks.
+     The blend kernels, the counting blend included, are held against their
+     plain versions at these shapes and timed, and so is the render, split
+     at its stage marks. At this size a pair that sits on a threshold may
+     flip between nvcc's expf and torch's exp, so the counting blend's hit
+     counts are held by the sum of |difference| over the sum of counts
+     (COUNT_RATIO_TOL), with the number of Gaussians that differ printed.
+     The chunk transpose is timed beside `permute(0, 2, 1).contiguous()`,
+     and the probe's rates are printed beside the two constants the bounds
+     assume.
   4. Training at full width: the same scene rendered exactly from the 8
      views is the ground truth; a copy with seeded noise on colour, opacity
      and position trains against it for 24 steps of `make_train_step` (the
@@ -41,16 +57,32 @@ Phases, each of which exits non-zero on failure:
      `lightgaussian_tpu_torch/utils/stage_marks.py`), and each training
      kernel is held against its plain version and timed at the step's
      shapes.
-Then a `{"kernels": [...]}` line, the card line, and the final
-`{"ok": true, "device": {...}}` line.
+  5. The CLI trainer at full width: a Blender-format source at 1920x1080
+     whose 8 train and 8 test views are exact renders of the serving scene,
+     and a `points3d.ply` of its 300,000 means with seeded noise. Then
+     `lightgaussian_tpu_torch.cli.train_densify_prune` through its flags:
+     100 iterations from the point cloud, densify at 25, 50 and 75, an
+     opacity reset at 60, a GSS prune of 30% at 90, reports at 1 and 100,
+     save and checkpoint at 100 with the `imp_score.npz` export; a second
+     call that resumes from the checkpoint to 110; and `render_sets` over
+     what was saved. Launch counts are read around the first call: B1 the
+     iterations plus one per evaluated view, B2 and B3 the iterations, B4
+     the iterations plus one per train camera, B5 8 x (1 prune + 1 export),
+     B7 one per evaluated view. The artifacts, the prune's share, the
+     falling test L1 and the resumed state are checked; the trainer's wall
+     time, its iterations per second and the cost of its parts are printed.
+Then a `{"kernels": [...]}` line of the nine kernels, the card line, and the
+final `{"ok": true, "device": {...}}` line.
 
 The script imports nothing of JAX. It builds everything it runs from the
 sources beside it; without CUDA, or without the package beside it, it fails.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -95,6 +127,9 @@ MUFU_PER_PAIR = {"culled": 0, "faint": 1, "past_stop": 1, "stopping": 1, "applie
 # the nine sums (3 adds, 3 multiply-adds, 3 colour multiply-adds: 15).
 F32_PER_PAIR_BWD = {"culled": 12, "faint": 21, "past_stop": 0, "stopping": 24, "applied": 61}
 MUFU_PER_PAIR_BWD = {"culled": 0, "faint": 1, "past_stop": 0, "stopping": 1, "applied": 2}
+# The counting blend, csrc/blend_count.cu: the exact forward's pairs; an
+# applied pair adds the weight sum's add, the w > 0 compare and the count.
+F32_PER_PAIR_COUNT = {**F32_PER_PAIR, "applied": F32_PER_PAIR["applied"] + 3}
 # The blur: 11 multiplies and 10 adds per output element and pass.
 F32_PER_BLUR_OUTPUT = 42
 
@@ -123,12 +158,42 @@ FAST_VS_EXACT_TOL = 2e-3
 BLUR_TOL = 1e-5
 SSIM_VALUE_TOL = 1e-6
 SSIM_GRAD_TOL = 1e-5
+# The importance: atol 1e-4 is the JAX suite's, on a scene whose largest importance is 18. The
+# saturating scene's reaches 373, where one float32 ulp is 3e-5 and the kernel's atomics add a
+# Gaussian's tiles in an order that changes from run to run (2 ulp seen), so 1e-6 relative is added.
+IMP_TOL, IMP_RTOL = 1e-4, 1e-6
+# Full size: sum of |count difference| over the sum of counts. A pair flips
+# when a float lies within an ulp or two of one of the walk's three
+# thresholds, and a flipped stop lets a few more instances through on that
+# pixel, so the share of such pairs is of the order of float32's epsilon:
+# measured 2.0e-8 (2 hits of 1.02e8, on 2 of 303,104 Gaussians). Held at 50
+# times that; a kernel that miscounts one pixel of one tile's instances
+# (1 in 1024) fails it by three decades.
+COUNT_RATIO_TOL = 1e-6
+# Full size: |d importance| over the largest importance (982 here). Measured
+# 1.4e-7, float32 sums of up to thousands of weights in another order.
+IMP_REL_TOL_FULL = 2e-6
+UNCHUNK_SHAPES = ((5, 16, 128), (3, 40, 128), (7680, 16, 128))
+PROBE_CHECK_PASSES = 6  # few: the approximate chains contract to a fixed point within twenty
+PROBE_TOL = 1e-5  # ex2.approx and rcp.approx are good to 2 ulp; the sums run in another order
 TIMING_REPS = 20
 PLAIN_REPS = 3
 MARK_SLACK_MS = 0.01  # a run's marked span may not exceed its synchronised host time
 TRAIN_STAGES = ("preprocess", "binning", "B1", "compose", "loss forward", "loss backward", "B2 + reduce",
                 "preprocess backward", "Adam", "densify statistics + metrics")
 SERVE_STAGES = ("preprocess", "binning", "B6", "compose")
+COUNT_STAGES = ("preprocess", "binning", "B5", "compose")
+# Phase 5, the trainer's schedule (its flags are built from these).
+CLI_ITERATIONS = 100
+CLI_RESUME_TO = 110
+CLI_DENSIFY = (20, 25, 80)  # from, every, until
+CLI_OPACITY_RESET = 60
+CLI_PRUNE_AT, CLI_PRUNE_PERCENT = 90, 0.3
+CLI_TEST_AT = (1, 100)
+N_TEST_VIEWS = 8
+REPORT_TRAIN_VIEWS = 5  # the loop's train sample of a report
+POINT_NOISE_SD = 0.01
+HOT_SHARE = 0.2  # the share of the point-cloud start's Gaussians above --densify_grad_threshold
 
 
 def fail(msg: str) -> None:
@@ -231,13 +296,17 @@ class Smoke:
 def build_kernels(s: Smoke) -> None:
     from lightgaussian_tpu_torch.ops import losses
     from lightgaussian_tpu_torch.ops.rasterize import blend
-    from lightgaussian_tpu_torch.utils import cuda_build
+    from lightgaussian_tpu_torch.utils import cuda_build, issue_probe
 
     t0 = time.perf_counter()
-    libs = cuda_build.build(blend.FORWARD_SOURCE, blend.BACKWARD_SOURCE, losses.SOURCE)
+    libs = cuda_build.build(blend.FORWARD_SOURCE, blend.BACKWARD_SOURCE, losses.SOURCE,
+                            blend.COUNT_SOURCE, blend.UNCHUNK_SOURCE, issue_probe.SOURCE)
     blend._forward_library()
     blend._backward_library()
     losses._library()
+    blend._count_library()
+    blend._unchunk_library()
+    issue_probe._library()
     s.say(f"phase 1 ok: built {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         print(f"-- {lib.with_suffix('.log').name}")
@@ -247,16 +316,19 @@ def build_kernels(s: Smoke) -> None:
 def reset_counts() -> None:
     from lightgaussian_tpu_torch.ops import losses
     from lightgaussian_tpu_torch.ops.rasterize import blend
+    from lightgaussian_tpu_torch.utils import issue_probe
 
     blend.reset_launch_counts()
     losses.reset_launch_counts()
+    issue_probe.reset_launch_counts()
 
 
 def read_counts() -> dict:
     from lightgaussian_tpu_torch.ops import losses
     from lightgaussian_tpu_torch.ops.rasterize import blend
+    from lightgaussian_tpu_torch.utils import issue_probe
 
-    return {**blend.LAUNCHES, **losses.LAUNCHES}
+    return {**blend.LAUNCHES, **losses.LAUNCHES, **issue_probe.LAUNCHES}
 
 
 def backward_seed(s: Smoke, image, final_t, grid, seed: int):
@@ -307,10 +379,82 @@ def hold_backward(s: Smoke, b, grid, n, tile_g, tile_r, what):
     return err, err_abs, work
 
 
+def hold_counting(s: Smoke, b, grid, n, what, full_size: bool):
+    """B5 against its plain version; returns (image error, importance
+    error, count ratio, work)."""
+    from lightgaussian_tpu_torch.ops.rasterize import blend
+
+    torch = s.torch
+    rgb, t, imp, cnt = blend.blend_forward_counting(b.tile_starts, b.inst, b.gid_sorted, grid, n)
+    s.sync()
+    w_rgb, w_t, w_imp, w_cnt, work = blend.plain_blend_counting(b.tile_starts, b.inst, b.gid_sorted, grid, n)
+    if not all(torch.isfinite(x).all() for x in (rgb, t, imp)):
+        fail(f"blend_count on {what}: non-finite output")
+    if imp.dtype != torch.float32 or cnt.dtype != torch.int32 or tuple(cnt.shape) != (n,):
+        fail(f"blend_count on {what}: outputs {imp.dtype} {cnt.dtype} {tuple(cnt.shape)}")
+    err = max(float((rgb - w_rgb).abs().max()), float((t - w_t).abs().max()))
+    d_imp = float((imp - w_imp).abs().max())
+    imp_over = float(((imp - w_imp).abs() - IMP_RTOL * w_imp.abs()).max())
+    d_cnt = (cnt.long() - w_cnt.long()).abs()
+    differ = int((d_cnt > 0).sum())
+    ratio = float(d_cnt.sum()) / max(float(w_cnt.long().sum()), 1.0)
+    unseen = torch.ones(n, dtype=torch.bool, device=s.dev)
+    unseen[b.gid_sorted] = False
+    imp_scale = float(w_imp.max())
+    s.say(f"  {'blend_count':20s} vs plain on {what}: image and T max|d| = {err:.3e} (atol {KERNEL_TOL:.0e}); "
+          f"importance max|d| = {d_imp:.3e} of a largest {imp_scale:.3e}; hit counts: {differ} of {n} Gaussians "
+          f"differ, sum|d| / sum = {ratio:.3e} of {int(w_cnt.long().sum())} hits; {int(unseen.sum())} Gaussians "
+          f"in no tile")
+    if err > KERNEL_TOL:
+        fail(f"blend_count's image disagrees with its plain version on {what}")
+    if full_size:
+        if ratio > COUNT_RATIO_TOL or d_imp > IMP_REL_TOL_FULL * imp_scale:
+            fail(f"blend_count's statistics disagree with the plain version on {what} "
+                 f"(count ratio tol {COUNT_RATIO_TOL:.0e}, importance {IMP_REL_TOL_FULL:.0e} of the largest)")
+    elif differ or imp_over > IMP_TOL:
+        fail(f"blend_count's statistics disagree with the plain version on {what} "
+             f"(counts must be equal, importance atol {IMP_TOL:.0e} + rtol {IMP_RTOL:.0e})")
+    if unseen.any() and (imp[unseen].abs().max() > 0 or cnt[unseen].abs().max() > 0):
+        fail(f"blend_count gave a score to a Gaussian in no tile on {what}")
+    return err, d_imp, ratio, work
+
+
+def hold_tools(s: Smoke) -> None:
+    """B8 against `permute` and the probe against its plain recurrences."""
+    from lightgaussian_tpu_torch.ops.rasterize import blend
+    from lightgaussian_tpu_torch.utils import issue_probe
+
+    torch = s.torch
+    gen = torch.Generator(device=s.dev).manual_seed(11)
+    for shape in UNCHUNK_SHAPES:
+        x = torch.randn(shape, generator=gen, device=s.dev)
+        got = blend.unchunk_transpose(x)
+        s.sync()
+        want = blend.plain_unchunk_transpose(x)
+        equal = got.shape == want.shape and torch.equal(got, want)
+        s.say(f"  {'unchunk_transpose':20s} vs permute at {shape}: {'bit-equal' if equal else 'DIFFERS'}")
+        if not equal:
+            fail(f"unchunk_transpose disagrees with permute at {shape}")
+    n = 8 * issue_probe.GRANULE
+    for kind in issue_probe.KINDS:
+        x = issue_probe.start_values(kind, n, s.dev)
+        got = issue_probe.run_chain(x, kind, PROBE_CHECK_PASSES)
+        s.sync()
+        want = issue_probe.plain_chain(x, kind, PROBE_CHECK_PASSES)
+        err = float((got - want).abs().max())
+        moved = float((got - x).abs().max())
+        tol = 0.0 if kind in ("mul", "mul_add", "fma") else PROBE_TOL
+        s.say(f"  {'issue_probe ' + kind:20s} vs plain over {PROBE_CHECK_PASSES} passes: max|d| = {err:.3e} "
+              f"(atol {tol:.0e}); the chain moved its values by up to {moved:.3e}")
+        if not torch.isfinite(got).all() or err > tol or moved == 0.0:
+            fail(f"the probe's {kind} chain disagrees with its plain recurrence")
+        s.probe_err = max(getattr(s, "probe_err", 0.0), err)
+
+
 def phase2(s: Smoke) -> dict:
     """Kernels against their plain versions at the parity sizes."""
     from lightgaussian_tpu_torch.ops import losses
-    from lightgaussian_tpu_torch.ops.rasterize import binning, blend, tiled
+    from lightgaussian_tpu_torch.ops.rasterize import binning, blend, count_render, tiled
     from lightgaussian_tpu_torch.ops.rasterize.projection import preprocess
     from lightgaussian_tpu_torch.utils.synthetic import default_camera, random_scene
 
@@ -355,9 +499,25 @@ def phase2(s: Smoke) -> dict:
             fail(f"render-only kernel differs from the exact one on {what}")
         tile_g, tile_r = backward_seed(s, img_e, fin_e, grid, seed=i)
         hold_backward(s, b, grid, scene.capacity, tile_g, tile_r, what)
+        hold_counting(s, b, grid, scene.capacity, what, full_size=False)
+        tiled_out = count_render(scene, cam, bg_small, max_instances=1 << 16)
+        oracle = count_render(scene, cam, bg_small, method="reference")
+        d_img = float((tiled_out.render - oracle.render).abs().max())
+        d_abs = (tiled_out.important_score - oracle.important_score).abs()
+        d_imp = float(d_abs.max())
+        imp_over = float((d_abs - IMP_RTOL * oracle.important_score.abs()).max())
+        differ = int((tiled_out.gaussians_count != oracle.gaussians_count).sum())
+        s.say(f"  count_render tiled vs reference on {what}: image max|d| = {d_img:.3e} (atol {KERNEL_TOL:.0e}), "
+              f"importance max|d| = {d_imp:.3e} (atol {IMP_TOL:.0e} + rtol {IMP_RTOL:.0e}), {differ} hit counts differ")
+        if d_img > KERNEL_TOL or imp_over > IMP_TOL or differ:
+            fail(f"count_render's tiled path disagrees with the oracle on {what}")
     counts = read_counts()
-    if min(counts[k] for k in ("blend_forward", "blend_forward_fast", "blend_backward")) < 1:
+    if min(counts[k] for k in ("blend_forward", "blend_forward_fast", "blend_backward", "blend_count")) < 1:
         fail(f"a blend kernel did not count its launches: {counts}")
+    hold_tools(s)
+    counts = read_counts()
+    if counts["unchunk_transpose"] != len(UNCHUNK_SHAPES) or counts["issue_probe"] < 7:
+        fail(f"B8 or the probe did not count its launches: {counts}")
 
     gen = torch.Generator(device=s.dev).manual_seed(7)
     for shape in BLUR_SHAPES:
@@ -431,6 +591,87 @@ def time_blend_kernels(s: Smoke, b, grid) -> None:
               f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms (FP32 {1e3 * f32_s:.4f} ms, MUFU "
               f"{1e3 * mufu_s:.4f} ms; pairs {pairs}, {b.inst.shape[0]} instances); no single PyTorch "
               f"call computes a tile alpha blend, so library_ms is null")
+
+
+def time_counting_kernel(s: Smoke, b, grid, n: int) -> None:
+    """B5 at the serving scene's view 0: differences, time and bound."""
+    from lightgaussian_tpu_torch.ops.rasterize import blend
+
+    err, d_imp, ratio, work = hold_counting(s, b, grid, n, "the serving scene's view 0 at 1920x1080", full_size=True)
+    args = (b.tile_starts, b.inst, b.gid_sorted, grid, n)
+    k_ms = s.event_ms(lambda: blend.blend_forward_counting(*args))
+    plain_ms = s.host_ms(lambda: blend.plain_blend_counting(*args))
+    pairs = dict(zip(blend.WORK_KINDS, work.sum(dim=0).tolist()))
+    f32_s = sum(c * F32_PER_PAIR_COUNT[k] for k, c in pairs.items()) / F32_INSTR_RATE
+    mufu_s = sum(c * MUFU_PER_PAIR[k] for k, c in pairs.items()) / MUFU_RATE
+    n_bytes = (b.inst.numel() * 4 + b.gid_sorted.numel() * 8 + b.tile_starts.numel() * 4
+               + grid.num_tiles * 4 * blend.PIX * 4 + n * 8)
+    bound = s.row("blend_count", "blend_count.cu", "lightgaussian_tpu/ops/rasterize/pallas_blend.py:360",
+                  err, k_ms, plain_ms, max(f32_s, mufu_s), n_bytes / PEAK_BYTES, None)
+    s.rows["blend_count"].update(importance_max_abs_err=d_imp, count_diff_ratio=ratio)
+    s.say(f"  blend_count: {k_ms:.4f} ms/launch (CUDA events, {TIMING_REPS} launches, incl. zeroing the two "
+          f"[{n}] outputs), plain {plain_ms:.3f} ms (plain walk + two index_add_), bound {bound:.4f} ms "
+          f"(FP32 {1e3 * f32_s:.4f} ms, MUFU {1e3 * mufu_s:.4f} ms, bytes {1e3 * n_bytes / PEAK_BYTES:.4f} ms; "
+          f"pairs {pairs}, {b.inst.shape[0]} instances); no single PyTorch call computes it, library_ms null")
+
+
+def time_tools(s: Smoke) -> None:
+    """B8 at the JAX package's profiled shape beside `contiguous()`, and the
+    probe's rates beside the constants the bounds assume. Neither lies on a
+    product path: their launches are those of their own entry points here."""
+    from lightgaussian_tpu_torch.ops.rasterize import blend
+    from lightgaussian_tpu_torch.utils import issue_probe
+
+    torch = s.torch
+    shape = UNCHUNK_SHAPES[-1]
+    x = torch.randn(shape, device=s.dev, generator=torch.Generator(device=s.dev).manual_seed(12))
+    reset_counts()
+    k_ms = s.event_ms(lambda: blend.unchunk_transpose(x))
+    launches = read_counts()["unchunk_transpose"]
+    equal = torch.equal(blend.unchunk_transpose(x), blend.plain_unchunk_transpose(x))
+    if not equal:
+        fail(f"unchunk_transpose disagrees with permute at {shape}")
+    # a launch this short is timed by events for all three: a host time would be launch and sync latency
+    plain_ms = s.event_ms(lambda: blend.plain_unchunk_transpose(x))
+    lib_ms = s.event_ms(lambda: x.permute(0, 2, 1).contiguous())
+    n_bytes = 2 * x.numel() * 4
+    bound = s.row("unchunk_transpose", "unchunk_transpose.cu", "lightgaussian_tpu/ops/rasterize/pallas_blend.py:682",
+                  0.0, k_ms, plain_ms, 0.0, n_bytes / PEAK_BYTES, lib_ms)
+    s.rows["unchunk_transpose"]["launches"] = launches
+    s.say(f"  unchunk_transpose {shape} -> {(shape[0] * shape[2], shape[1])}: bit-equal to permute; {k_ms:.4f} "
+          f"ms/launch (CUDA events, {n_bytes / k_ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms (permute + reshape, "
+          f"CUDA events too), bound {bound:.4f} ms ({n_bytes / 1e6:.1f} MB), library {lib_ms:.4f} ms: "
+          f"x.permute(0, 2, 1).contiguous(); {launches} launches of its own entry point")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    rates = issue_probe.measure()
+    took = time.perf_counter() - t0
+    launches = read_counts()["issue_probe"]
+    assumed = {"fp32": F32_INSTR_RATE, "mufu": MUFU_RATE}
+    for kind, r in rates.items():
+        if not (r["ns_per_pass"] > 0 and math.isfinite(r["per_second"])):
+            fail(f"the probe's {kind} chain gave no rate: {r}")
+        line = (f"  issue_probe {kind:9s}: {r['ns_per_pass']:.2f} ns per pass over {r['elements']} elements, "
+                f"{r['per_second']:.4e} {r['unit']} instructions/s ({r['instructions_per_pass']} per pass and element)")
+        if r["unit"] in assumed:
+            name = "F32_INSTR_RATE" if r["unit"] == "fp32" else "MUFU_RATE"
+            line += f"; {name} assumes {assumed[r['unit']]:.4e}: measured / assumed = {r['per_second'] / assumed[r['unit']]:.3f}"
+        s.say(line)
+    # the probe's row: the float multiply chain, the kind the bounds lean on most
+    mul = rates["mul"]
+    hi = 4096
+    n = mul["elements"]
+    x = issue_probe.start_values("mul", n, s.dev)
+    k_ms = s.event_ms(lambda: issue_probe.run_chain(x, "mul", hi), reps=5)
+    plain_ms = s.host_ms(lambda: issue_probe.plain_chain(x, "mul", hi), reps=1)
+    bound = s.row("issue_probe", "issue_probe.cu", "scripts/roofline.py:62", getattr(s, "probe_err", 0.0), k_ms,
+                  plain_ms, n * hi / F32_INSTR_RATE, 2 * n * 4 / PEAK_BYTES, None)
+    s.rows["issue_probe"]["launches"] = launches
+    s.rows["issue_probe"]["rates_per_second"] = {k: r["per_second"] for k, r in rates.items()}
+    s.say(f"  issue_probe (mul chain of {hi} passes over {n} floats): {k_ms:.4f} ms/launch, plain {plain_ms:.3f} ms "
+          f"({hi} elementwise launches), bound {bound:.4f} ms (operations at F32_INSTR_RATE); measure() made "
+          f"{launches} launches in {took:.2f} s; library_ms null (no PyTorch call runs a dependent chain)")
 
 
 def phase3(s: Smoke, tmp: Path) -> dict:
@@ -528,7 +769,10 @@ def phase3(s: Smoke, tmp: Path) -> dict:
     s.say(f"  render(fast=True) 1920x1080, 300k Gaussians SH 3: median "
           f"{statistics.median(whole):.3f} ms/frame over {N_VIEWS} views")
     stage_split(s, runs, SERVE_STAGES, whole, "render(fast=True)")
-    time_blend_kernels(s, binning.bin_splats(preprocess(loaded, cams[0]), grid, max_inst), grid)
+    b0 = binning.bin_splats(preprocess(loaded, cams[0]), grid, max_inst)
+    time_blend_kernels(s, b0, grid)
+    time_counting_kernel(s, b0, grid, loaded.capacity)
+    time_tools(s)
     print("phase 3 ok", flush=True)
     return launches_cli
 
@@ -746,6 +990,268 @@ def phase4(s: Smoke, blur_errors: dict) -> dict:
     return {"train": train_counts, "eval": eval_counts}
 
 
+class _Tee:
+    """Collects what a phase's callee prints, and passes it on."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    @property
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def _called(fn, argv) -> tuple[str, float]:
+    """Run a CLI's main(argv); returns (what it printed, its wall time)."""
+    import contextlib
+
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        fn(argv)
+    return tee.text, time.perf_counter() - t0
+
+
+def phase5(s: Smoke, tmp: Path) -> dict:
+    """The CLI trainer at full width; returns the first call's launch counts."""
+    import csv
+
+    from lightgaussian_tpu_torch.cli import render_sets, train_densify_prune
+    from lightgaussian_tpu_torch.config import OptimizationParams
+    from lightgaussian_tpu_torch.data import dataset
+    from lightgaussian_tpu_torch.data.ply import load_gaussian_ply, save_gaussian_ply, store_point_cloud
+    from lightgaussian_tpu_torch.models.camera import Camera
+    from lightgaussian_tpu_torch.models.gaussians import from_point_cloud
+    from lightgaussian_tpu_torch.ops import losses
+    from lightgaussian_tpu_torch.ops.rasterize import default_max_instances, render
+    from lightgaussian_tpu_torch.ops.rasterize.projection import preprocess
+    from lightgaussian_tpu_torch.ops.rasterize.tiled import blend_tiled
+    from lightgaussian_tpu_torch.train import checkpoint, densify, gss
+    from lightgaussian_tpu_torch.train.state import init_train_state
+    from lightgaussian_tpu_torch.train.step import make_eval_render, make_train_step
+    from lightgaussian_tpu_torch.utils import image_io, stage_marks
+    from lightgaussian_tpu_torch.utils.synthetic import random_scene
+
+    torch = s.torch
+    dev = s.dev
+    t0 = time.perf_counter()
+    truth = random_scene(n=N_GAUSS, seed=0, extent=2.0, scale_range=(0.004, 0.02), active_sh_degree=3, device=dev)
+    bg = torch.zeros(3, device=dev)
+    src, out = tmp / "src5", tmp / "model5"
+    train_views = [0.2 + 2.0 * math.pi * i / N_VIEWS for i in range(N_VIEWS)]
+    test_views = [0.2 + math.pi / N_VIEWS + 2.0 * math.pi * i / N_TEST_VIEWS for i in range(N_TEST_VIEWS)]
+    gt_cams = []  # the train cameras with their ground truth as the PNGs hold it
+    for split, ts in (("train", train_views), ("test", test_views)):
+        frames = []
+        for i, t in enumerate(ts):
+            cam = Camera.look_at(orbit_eye(t), [0, 0, 0], fovx=0.9, width=WIDTH, height=HEIGHT, device=dev)
+            with torch.no_grad():
+                img = render(truth, cam, bg, max_instances=MAX_INSTANCES).render.clamp(0.0, 1.0)
+            quantised = (img.permute(1, 2, 0) * 255.0 + 0.5).to(torch.uint8)
+            if split == "train":
+                gt_cams.append(cam.with_gt(quantised.permute(2, 0, 1).to(torch.float32) / 255.0))
+            arr = quantised.cpu().numpy()
+            image_io.write_png(src / split / f"r_{i}.png", arr)
+            frames.append({"file_path": f"./{split}/r_{i}", "transform_matrix": blender_c2w(orbit_eye(t))})
+        (src / f"transforms_{split}.json").write_text(json.dumps({"camera_angle_x": 0.9, "frames": frames}))
+    rng = np.random.default_rng(2)
+    alive = truth.alive.cpu().numpy()
+    points = truth.means.cpu().numpy()[alive] + rng.normal(0.0, POINT_NOISE_SD, (int(alive.sum()), 3))
+    store_point_cloud(src / "points3d.ply", points, rng.random((points.shape[0], 3)) * 255)
+    s.sync()
+    s.say(f"  wrote {N_VIEWS} train and {N_TEST_VIEWS} test views (exact renders of the serving scene, PNG) and "
+          f"a point cloud of {points.shape[0]} points in {time.perf_counter() - t0:.2f} s")
+
+    # from_point_cloud at this size, and the percent_dense that splits its scales in two
+    init_ms = s.host_ms(lambda: from_point_cloud(points, np.zeros_like(points), device=dev), reps=3)
+    init = from_point_cloud(points, np.zeros_like(points), device=dev)
+    extent = dataset.read_scene(src, eval_split=True).nerf_normalization["radius"]
+    median_scale = float(init.scales[init.alive].amax(dim=1).median())
+    percent_dense = median_scale / extent
+    # The positional gradient's size depends on the scene (300k small Gaussians under a mean over 2M
+    # pixels): one step per train view from the same start says where HOT_SHARE of it lies.
+    probe = init_train_state(from_point_cloud(points, rng.random(points.shape), device=dev))
+    probe_step = make_train_step(OptimizationParams(), extent, 2 * default_max_instances(init))
+    for cam in gt_cams:
+        probe, _ = probe_step(probe, cam, bg)
+    seen = probe.denom > 0
+    mean_grad = probe.xyz_grad_accum[seen] / probe.denom[seen]
+    grad_threshold = float(torch.quantile(mean_grad, 1 - HOT_SHARE))
+    # The statistic is in NDC units: one more backward, with the blend backward's d loss / d mean2d (pixels)
+    # kept, shows that it is 0.5 W and 0.5 H times the pixel gradient at this frame size.
+    offset = torch.zeros((probe.capacity, 2), device=dev, requires_grad=True)
+    splats = preprocess(probe.scene, gt_cams[0], mean2d_offset=offset)
+    splats.mean2d.retain_grad()
+    image, _, _ = blend_tiled(splats, bg, WIDTH, HEIGHT, 2 * default_max_instances(init))
+    lam = OptimizationParams().lambda_dssim
+    loss = (1.0 - lam) * losses.l1_loss(image, gt_cams[0].gt_image) + lam * (1.0 - losses.ssim(image, gt_cams[0].gt_image))
+    loss.backward()
+    g_px, g_ndc = splats.mean2d.grad, offset.grad
+    half = torch.tensor([0.5 * WIDTH, 0.5 * HEIGHT], device=dev)
+    hit = g_px.abs().sum(dim=1) > 0
+    ndc_err = float((g_ndc - g_px * half).abs().max() / g_ndc.abs().max())
+    px_norm, ndc_norm = g_px[hit].norm(dim=1), g_ndc[hit].norm(dim=1)
+    s.say(f"  positional gradient at {WIDTH}x{HEIGHT}: d loss / d mean2d from the blend backward, median norm over "
+          f"the {int(hit.sum())} Gaussians it reaches {float(px_norm.median()):.3e} per pixel, times 0.5 W = "
+          f"{0.5 * WIDTH * float(px_norm.median()):.3e}; the same backward's NDC gradient (what the step "
+          f"accumulates) median {float(ndc_norm.median()):.3e}, largest |NDC - (0.5 W, 0.5 H) x pixel| / largest "
+          f"{ndc_err:.1e}; median of xyz_grad_accum / denom after the {N_VIEWS} probe steps {float(mean_grad.median()):.3e}, "
+          f"mean {float(mean_grad.mean()):.3e} (the default threshold is 2e-4)")
+    if not (ndc_err < 1e-5 and 0.5 * HEIGHT * float(px_norm.median()) <= float(ndc_norm.median())
+            <= 0.5 * WIDTH * float(px_norm.median())):
+        fail("the positional gradient is not the pixel gradient in NDC units")
+    del offset, splats, image, loss, g_px, g_ndc
+    s.say(f"  from_point_cloud of {points.shape[0]} points (3-NN over three Morton orders): {init_ms:.2f} ms "
+          f"(host-timed, median of 3); capacity {init.capacity}, median scale {median_scale:.5f}, scene extent "
+          f"{extent:.3f}, so --percent_dense {percent_dense:.6f} sends half the hot Gaussians to clone, half to split; "
+          f"after {N_VIEWS} steps from this start {HOT_SHARE:.0%} of the {int(seen.sum())} Gaussians seen have a mean "
+          f"positional gradient above {grad_threshold:.3e}, the --densify_grad_threshold used (the default 2e-4 "
+          f"placed nothing here)")
+    del probe, gt_cams
+
+    d_from, d_every, d_until = CLI_DENSIFY
+    common_flags = ["-s", str(src), "-m", str(out), "--eval", "-r", "1", "--quiet", "--device", DEVICE,
+                    "--densify_from_iter", str(d_from), "--densification_interval", str(d_every),
+                    "--densify_until_iter", str(d_until), "--opacity_reset_interval", str(CLI_OPACITY_RESET),
+                    "--percent_dense", f"{percent_dense:.6f}", "--densify_grad_threshold", f"{grad_threshold:.4e}",
+                    "--position_lr_max_steps", str(CLI_ITERATIONS)]
+    reset_counts()
+    text, wall = _called(train_densify_prune.main, [
+        *common_flags, "--disable_viewer", "--iterations", str(CLI_ITERATIONS),
+        "--prune_iterations", str(CLI_PRUNE_AT), "--prune_percent", str(CLI_PRUNE_PERCENT),
+        "--test_iterations", *map(str, CLI_TEST_AT), "--save_iterations", str(CLI_ITERATIONS),
+        "--checkpoint_iterations", str(CLI_ITERATIONS),
+    ])
+    s.sync()
+    counts = read_counts()
+    n_eval = len(CLI_TEST_AT) * (N_TEST_VIEWS + min(REPORT_TRAIN_VIEWS, N_VIEWS))
+    n_sweeps = 2  # the prune, and the imp_score export at the last checkpoint
+    want = {
+        "blend_forward": CLI_ITERATIONS + n_eval, "blend_backward": CLI_ITERATIONS, "blur3": CLI_ITERATIONS,
+        "blur": CLI_ITERATIONS + N_VIEWS, "blur5": n_eval, "blend_count": N_VIEWS * n_sweeps,
+        "blend_forward_fast": 0, "unchunk_transpose": 0, "issue_probe": 0,
+    }
+    s.say(f"  trainer CLI: {CLI_ITERATIONS} iterations in {wall:.2f} s wall incl. loading {N_VIEWS + N_TEST_VIEWS} "
+          f"PNGs, the point-cloud start, reports and saves; launches {counts}")
+    s.say(f"  expected: B1 {CLI_ITERATIONS} steps + {n_eval} evaluated views ({len(CLI_TEST_AT)} reports x "
+          f"({N_TEST_VIEWS} test + {min(REPORT_TRAIN_VIEWS, N_VIEWS)} train views), one exact render and one "
+          f"five-moment SSIM each), B2 and B3 one a step, B4 one a step + {N_VIEWS} train cameras at set-up, "
+          f"B5 {N_VIEWS} cameras x {n_sweeps} sweeps, B7 {n_eval}")
+    if counts != want:
+        fail(f"the trainer made launches {counts}, expected {want}")
+
+    # densify and prune lines
+    placed = [tuple(map(int, m)) for m in re.findall(r"densify: cloned (\d+), split (\d+), pruned (\d+), dropped (\d+), alive (\d+)", text)]
+    n_densify = len(range(d_every * (d_from // d_every + 1), d_until, d_every))
+    if len(placed) != n_densify or sum(p[0] for p in placed) == 0 or sum(p[1] for p in placed) == 0:
+        fail(f"expected {n_densify} densify lines with clones and splits placed, got {placed}")
+    m = re.search(r"GSS prune 30\.00% \(pass 0\)\n\s+(\d+) -> (\d+) gaussians", text)
+    if not m:
+        fail("the trainer printed no GSS prune line")
+    before, after = int(m.group(1)), int(m.group(2))
+    idx = int(np.float32(CLI_PRUNE_PERCENT) * np.float32(before))
+    s.say(f"  GSS prune at {CLI_PRUNE_AT}: {before} -> {after} alive; without ties {before - idx - 1} "
+          f"(scores at or below the one at place {idx} of the ascending order go)")
+    if not 0.65 * before <= after <= before - idx - 1:
+        fail(f"the GSS prune kept {after} of {before}, not {1 - CLI_PRUNE_PERCENT:.0%} within ties")
+
+    # artifacts
+    ply_path = out / "point_cloud" / f"iteration_{CLI_ITERATIONS}" / "point_cloud.ply"
+    ckpt_path = out / f"chkpnt{CLI_ITERATIONS}.npz"
+    for f in (out / "cfg_args.json", out / "cameras.json", out / "input.ply", out / "metric.csv", ckpt_path,
+              out / "imp_score.npz", ply_path):
+        if not f.is_file() or f.stat().st_size == 0:
+            fail(f"the trainer left no {f.relative_to(out)}")
+    state, it, ckpt_extent = checkpoint.load_checkpoint(ckpt_path, device=dev)
+    n_alive = state.scene.num_alive()
+    saved = load_gaussian_ply(ply_path, device=dev)
+    imp_score = np.load(out / "imp_score.npz")["arr_0"]
+    if not (imp_score.shape == (n_alive,) and saved.num_alive() == n_alive and it == state.step == CLI_ITERATIONS):
+        fail(f"imp_score {imp_score.shape}, PLY rows {saved.num_alive()}, alive {n_alive}, iteration {it}")
+    if not (np.isfinite(imp_score).all() and imp_score.max() > 0 and abs(ckpt_extent - extent) < 1e-6):
+        fail("imp_score.npz is not finite and positive, or the checkpoint's extent is not the scene's")
+    params = ("means", "sh_dc", "sh_rest", "log_scales", "quats", "opacity_logits")
+    want_keys = sorted(["__meta__", "scene/alive", "opt/count", "step", "max_radii2d", "xyz_grad_accum", "denom"]
+                       + [f"{g}/{k}" for g in ("scene", "opt/mu", "opt/nu") for k in params])
+    with np.load(ckpt_path) as z:
+        if sorted(z.files) != want_keys:
+            fail(f"checkpoint keys {sorted(z.files)}")
+    rows = [r for r in csv.DictReader(open(out / "metric.csv")) if r["set"] == "test"]
+    if [int(r["iteration"]) for r in rows] != list(CLI_TEST_AT):
+        fail(f"metric.csv test rows at {[r['iteration'] for r in rows]}")
+    l1_first, l1_last, elapsed = float(rows[0]["l1_loss"]), float(rows[-1]["l1_loss"]), float(rows[-1]["elapsed"])
+    s.say(f"  test L1 {l1_first:.6f} at iteration {CLI_TEST_AT[0]} -> {l1_last:.6f} at {CLI_TEST_AT[-1]} (PSNR "
+          f"{rows[0]['psnr']} -> {rows[-1]['psnr']}); training sections (StepTimer) {elapsed:.2f} s = "
+          f"{CLI_ITERATIONS / elapsed:.2f} iterations/s; alive {n_alive} of capacity {state.capacity}")
+    if not l1_last < l1_first:
+        fail("the trainer did not lower the test L1")
+
+    # resume, then serve what was saved
+    text2, wall2 = _called(train_densify_prune.main, [
+        *common_flags, "--start_checkpoint", str(ckpt_path), "--iterations", str(CLI_RESUME_TO),
+        "--prune_iterations", str(10 * CLI_RESUME_TO), "--test_iterations", str(CLI_RESUME_TO),
+        "--save_iterations", str(CLI_RESUME_TO), "--checkpoint_iterations", str(CLI_RESUME_TO),
+    ])
+    state2, it2, _ = checkpoint.load_checkpoint(out / f"chkpnt{CLI_RESUME_TO}.npz", device=dev)
+    resumed = f"at iteration {CLI_ITERATIONS}" in text2 and f"{CLI_RESUME_TO - CLI_ITERATIONS} iterations in" in text2
+    if not (resumed and it2 == state2.step == CLI_RESUME_TO and "viewer is not ported" in text2):
+        fail(f"the resumed run did not start at {CLI_ITERATIONS + 1} and end at {CLI_RESUME_TO}")
+    if torch.equal(state2.scene.means, state.scene.means) or not torch.isfinite(state2.scene.means).all():
+        fail("the resumed run left the checkpoint's means as they were")
+    s.say(f"  resumed from chkpnt{CLI_ITERATIONS}.npz to {CLI_RESUME_TO} in {wall2:.2f} s wall")
+    reset_counts()
+    render_sets.main(["-s", str(src), "-m", str(out), "--eval", "--skip_train", "-r", "1", "--quiet",
+                      "--device", DEVICE])
+    served = sorted((out / "test" / f"ours_{CLI_RESUME_TO}" / "renders").glob("*.png"))
+    serve_counts = read_counts()
+    if len(served) != N_TEST_VIEWS or serve_counts["blend_forward_fast"] != N_TEST_VIEWS:
+        fail(f"render_sets served {len(served)} views of the trained model with launches {serve_counts}")
+    got = image_io.read_image(served[0]).astype(np.float32)
+    gt = image_io.read_image(src / "test" / "r_0.png").astype(np.float32)
+    d_served = float(np.abs(got - gt).mean()) / 255.0
+    s.say(f"  render_sets served {len(served)} test views of iteration {CLI_RESUME_TO}; view 0 mean |render - gt| "
+          f"= {d_served:.6f} (the report's test L1 {l1_last:.6f})")
+    if got.shape != (HEIGHT, WIDTH, 3) or got.std() < 1.0 or d_served > 2.0 * l1_first:
+        fail("the served render of the trained model is blank or far from the ground truth")
+
+    # what the trainer's parts cost, one at a time on the trained state
+    cams = [Camera.look_at(orbit_eye(t), [0, 0, 0], fovx=0.9, width=WIDTH, height=HEIGHT, device=dev)
+            for t in train_views]
+    max_inst = default_max_instances(state2.scene)
+    sweep_ms = s.host_ms(lambda: gss.accumulate_gss_auto(state2.scene, cams, bg, max_inst))
+    stage_marks.start()
+    gss.accumulate_gss(state2.scene, cams[:1], bg, max_inst)
+    s.sync()
+    marks = stage_marks.stop()
+    if [name for name, _ in marks] != list(COUNT_STAGES):
+        fail(f"count_render's stage marks {[name for name, _ in marks]}, expected {list(COUNT_STAGES)}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hot = dataclasses.replace(state2, xyz_grad_accum=torch.rand(state2.capacity, device=dev, generator=gen) * 4e-4,
+                              denom=torch.ones(state2.capacity, device=dev))
+    densify_ms = s.host_ms(lambda: densify.densify_and_prune(hot, 2e-4, 0.005, extent, 20, percent_dense, gen))
+    eval_render = make_eval_render(max_inst)
+    gt0 = image_io.read_image(src / "train" / "r_0.png").astype(np.float32) / 255.0
+    gt_cam = cams[0].with_gt(torch.from_numpy(gt0).permute(2, 0, 1).to(dev))
+    eval_ms = s.host_ms(lambda: eval_render(state2.scene, gt_cam, bg))
+    save_ms = s.host_ms(lambda: save_gaussian_ply(state2.scene, tmp / "timed.ply"), reps=1)
+    ckpt_ms = s.host_ms(lambda: checkpoint.save_checkpoint(tmp / "timed.npz", state2, 0), reps=1)
+    s.say(f"  the trainer's parts on the trained state ({state2.scene.num_alive()} alive, capacity {state2.capacity}; "
+          f"host-timed, median of {PLAIN_REPS}): one GSS sweep over {N_VIEWS} cameras {sweep_ms:.2f} ms (one camera "
+          f"at its marks: {', '.join(f'{k} {v:.3f}' for k, v in marks)} ms); one densify_and_prune {densify_ms:.2f} "
+          f"ms; one evaluated view (exact render + five-moment SSIM) {eval_ms:.2f} ms, so a report of "
+          f"{n_eval // len(CLI_TEST_AT)} views {eval_ms * n_eval / len(CLI_TEST_AT):.1f} ms; PLY save {save_ms:.1f} "
+          f"ms, checkpoint save {ckpt_ms:.1f} ms")
+    print("phase 5 ok", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -766,11 +1272,19 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     counts = phase4(s, blur_errors)
-    # launches on each kernel's path: the CLI (B6), the training steps (B1-B4), the eval render (B7)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        trainer_counts = phase5(s, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # launches on each kernel's path: the render CLI (B6), the training steps (B1-B4), the eval render
+    # (B7), the trainer CLI (B5); B8 and the probe, on no product path, carry their own entry points'
     for name, row in s.rows.items():
-        row["launches"] = (cli_counts if name == "blend_forward_fast"
-                           else counts["eval"] if name == "blur5" else counts["train"])[name]
-    order = ("blend_forward", "blend_forward_fast", "blend_backward", "blur3", "blur", "blur5")
+        if row["launches"] is None:
+            row["launches"] = (cli_counts if name == "blend_forward_fast" else counts["eval"] if name == "blur5"
+                               else trainer_counts if name == "blend_count" else counts["train"])[name]
+    order = ("blend_forward", "blend_forward_fast", "blend_backward", "blur3", "blur", "blur5", "blend_count",
+             "unchunk_transpose", "issue_probe")
     print(json.dumps({"kernels": [s.rows[k] for k in order]}))
     print(s.card)
     print(json.dumps({"ok": True, "device": {

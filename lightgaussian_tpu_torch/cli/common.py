@@ -1,9 +1,10 @@
 """Shared CLI plumbing: dataclass-backed argument groups.
 
-Port of the render-side part of `lightgaussian_tpu/cli/common.py`: every
-field of the config dataclasses becomes a `--flag` with its default, and
-`get_combined_args` merges a saved `cfg_args.json` from the model dir with
-the command line (explicit flags win).
+Port of `lightgaussian_tpu/cli/common.py`: every field of the config
+dataclasses becomes a `--flag` with its default, and `get_combined_args`
+merges a saved `cfg_args.json` from the model dir with the command line
+(explicit flags win). The training CLIs' shared flags (`--device`,
+`--debug_nans`, the ground-truth SSIM cache) are here too.
 """
 from __future__ import annotations
 
@@ -13,7 +14,9 @@ import json
 from pathlib import Path
 from typing import get_type_hints
 
-from lightgaussian_tpu_torch.config import ModelParams, PipelineParams
+import torch
+
+from lightgaussian_tpu_torch.config import ModelParams, OptimizationParams, PipelineParams
 
 
 def add_dataclass_args(parser: argparse.ArgumentParser, cls, shorthand: dict | None = None) -> None:
@@ -37,13 +40,42 @@ def extract_dataclass(args: argparse.Namespace, cls):
 MODEL_SHORTHAND = {"source_path": "s", "model_path": "m", "images": "i", "resolution": "r", "white_background": "w"}
 
 
-def add_standard_groups(parser: argparse.ArgumentParser) -> None:
+def add_standard_groups(parser: argparse.ArgumentParser, opt: bool = False) -> None:
     add_dataclass_args(parser, ModelParams, shorthand=MODEL_SHORTHAND)
     add_dataclass_args(parser, PipelineParams)
+    if opt:
+        add_dataclass_args(parser, OptimizationParams)
 
 
 def extract_standard(args: argparse.Namespace):
     return extract_dataclass(args, ModelParams), extract_dataclass(args, PipelineParams)
+
+
+def add_device_flag(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+
+def add_debug_nans_flag(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--debug_nans", action="store_true",
+        help="turn on torch.autograd.set_detect_anomaly: fail at the operation whose backward made a NaN",
+    )
+
+
+def apply_debug_flags(args: argparse.Namespace) -> None:
+    if getattr(args, "debug_nans", False):
+        torch.autograd.set_detect_anomaly(True)
+
+
+def add_cache_gt_ssim_flag(parser: argparse.ArgumentParser) -> None:
+    """Three-way control of the per-camera ground-truth SSIM moment cache
+    (`train.loop._attach_gt_ssim_stats`): on, off, or, by default, on while
+    it fits the loop's budget."""
+    g = parser.add_mutually_exclusive_group()
+    g.add_argument("--cache_gt_ssim", dest="cache_gt_ssim", action="store_true", default=None,
+                   help="always cache the ground truth's SSIM moments (two image-sized planes a camera)")
+    g.add_argument("--no_cache_gt_ssim", dest="cache_gt_ssim", action="store_false",
+                   help="never cache them")
 
 
 def get_combined_args(parser: argparse.ArgumentParser, argv=None) -> argparse.Namespace:

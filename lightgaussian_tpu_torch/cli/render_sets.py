@@ -31,7 +31,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--load_vq", action="store_true")
     parser.add_argument("--new_sh", type=int, default=None)
     parser.add_argument("--quiet", action="store_true")
-    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    common.add_device_flag(parser)
     return parser
 
 

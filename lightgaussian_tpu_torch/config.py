@@ -1,10 +1,12 @@
 """Configuration dataclasses: the reference's flag groups with the same names
-and defaults (port of the model, pipeline and optimisation groups of
-`lightgaussian_tpu/config.py`; `TrainConfig` comes with the training
-loop)."""
+and defaults (port of `lightgaussian_tpu/config.py`), kept in the model
+directory as JSON."""
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
+from typing import List, Optional
 
 
 @dataclasses.dataclass
@@ -44,3 +46,47 @@ class OptimizationParams:
     densify_from_iter: int = 500
     densify_until_iter: int = 15_000
     densify_grad_threshold: float = 0.0002
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """What the training CLIs share beyond the three groups."""
+
+    model: ModelParams = dataclasses.field(default_factory=ModelParams)
+    pipeline: PipelineParams = dataclasses.field(default_factory=PipelineParams)
+    opt: OptimizationParams = dataclasses.field(default_factory=OptimizationParams)
+    test_iterations: List[int] = dataclasses.field(default_factory=lambda: [7_000, 30_000])
+    save_iterations: List[int] = dataclasses.field(default_factory=lambda: [7_000, 30_000])
+    checkpoint_iterations: List[int] = dataclasses.field(default_factory=list)
+    start_checkpoint: Optional[str] = None
+    # the in-training GSS prune schedule
+    prune_iterations: List[int] = dataclasses.field(default_factory=lambda: [16_000, 24_000])
+    prune_percent: float = 0.5
+    prune_decay: float = 0.6
+    v_pow: float = 0.1
+    seed: int = 0
+
+
+_GROUPS = {"ModelParams": ModelParams, "PipelineParams": PipelineParams, "OptimizationParams": OptimizationParams}
+
+
+def save_config(cfg, path: str | Path) -> None:
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(json.dumps(dataclasses.asdict(cfg), indent=2))
+
+
+def load_config(cls, path: str | Path):
+    """A `cls` from the JSON `save_config` wrote; unknown keys are ignored."""
+    raw = json.loads(Path(path).read_text())
+
+    def build(c, d):
+        fields = {f.name: f for f in dataclasses.fields(c)}
+        kwargs = {}
+        for k, v in d.items():
+            if k not in fields:
+                continue
+            ft = fields[k].type
+            kwargs[k] = build(_GROUPS[ft], v) if isinstance(v, dict) and ft in _GROUPS else v
+        return c(**kwargs)
+
+    return build(cls, raw)

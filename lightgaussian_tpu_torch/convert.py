@@ -10,6 +10,10 @@ A train state travels as a dict: "scene" (the scene's parameter arrays,
 "alive", "active_sh_degree", "max_sh_degree"), "mu" and "nu" (Adam's moments
 by parameter), "count" (Adam's step count), "step", and the densification
 statistics "max_radii2d", "xyz_grad_accum" and "denom".
+
+`flatten_train_state` and `unflatten_train_state` turn that dict into the
+flat keys of the JAX package's checkpoint files and back
+(`train/checkpoint.py` reads and writes the files).
 """
 from __future__ import annotations
 
@@ -120,3 +124,38 @@ def train_state_to_numpy(state: TrainState) -> dict:
         step=state.step,
         **{k: _np(getattr(state, k)) for k in STAT_FIELDS},
     )
+
+
+def flatten_train_state(arrays: dict) -> dict:
+    """The dict layout as the flat arrays of a checkpoint file: the JAX
+    package's tree paths "scene/<param>", "scene/alive", "opt/mu/<param>",
+    "opt/nu/<param>", "opt/count", "step" (int32 scalars) and the three
+    statistics. The SH degrees are no arrays; they travel in the file's
+    metadata."""
+    flat = {f"scene/{k}": np.asarray(arrays["scene"][k], dtype=np.float32)
+            for k in GaussianScene.PARAM_FIELDS}
+    flat["scene/alive"] = np.asarray(arrays["scene"]["alive"], dtype=bool)
+    for moment in ("mu", "nu"):
+        for k in GaussianScene.PARAM_FIELDS:
+            flat[f"opt/{moment}/{k}"] = np.asarray(arrays[moment][k], dtype=np.float32)
+    flat["opt/count"] = np.asarray(arrays["count"], dtype=np.int32)
+    flat["step"] = np.asarray(arrays["step"], dtype=np.int32)
+    for k in STAT_FIELDS:
+        flat[k] = np.asarray(arrays[k], dtype=np.float32)
+    return flat
+
+
+def unflatten_train_state(flat: dict, active_sh_degree: int, max_sh_degree: int) -> dict:
+    """The inverse of `flatten_train_state`; a missing key raises KeyError."""
+    scene = {k: flat[f"scene/{k}"] for k in GaussianScene.PARAM_FIELDS}
+    scene.update(alive=flat["scene/alive"], active_sh_degree=int(active_sh_degree),
+                 max_sh_degree=int(max_sh_degree))
+    return dict(
+        scene=scene,
+        mu={k: flat[f"opt/mu/{k}"] for k in GaussianScene.PARAM_FIELDS},
+        nu={k: flat[f"opt/nu/{k}"] for k in GaussianScene.PARAM_FIELDS},
+        count=int(flat["opt/count"]),
+        step=int(flat["step"]),
+        **{k: flat[k] for k in STAT_FIELDS},
+    )
+

@@ -1,20 +1,24 @@
-"""Scene: binds a dataset directory and a saved iteration to a GaussianScene.
+"""Scene: binds a dataset directory to a GaussianScene.
 
-Port of `lightgaussian_tpu/data/scene.py` for rendering a saved iteration:
-scene-type sniffing, camera shuffling, the NeRF++ `cameras_extent`, and
-`load_ply` / SH-truncating `load_ply_sh` loads. A fresh run (initialising
-from the point cloud) needs the 3-NN scale initialisation of the training
-slice, and `load_vq` the compression slice; both raise until then.
+Port of `lightgaussian_tpu/data/scene.py`: scene-type sniffing, the first
+run's `input.ply` copy and `cameras.json` export, camera shuffling, the
+NeRF++ `cameras_extent`, and the model's start: from the point cloud for a
+fresh run, `load_ply` / SH-truncating `load_ply_sh` for a saved iteration.
+Saving writes `point_cloud/iteration_N/point_cloud.ply` in the reference's
+layout. `load_vq` needs the compression slice and raises until then.
 """
 from __future__ import annotations
 
+import json
 import random
+import shutil
 from pathlib import Path
 
 import torch
 
 from lightgaussian_tpu_torch.data import dataset as D
 from lightgaussian_tpu_torch.data import ply as ply_io
+from lightgaussian_tpu_torch.models import gaussians as G
 from lightgaussian_tpu_torch.utils.device import resolve_device
 
 
@@ -31,6 +35,7 @@ class Scene:
         shuffle: bool = True,
         new_sh_degree: int | None = None,
         load_vq: bool = False,
+        max_sh_degree: int = 3,
         seed: int = 0,
         device: str | torch.device = "cuda",
     ):
@@ -50,15 +55,21 @@ class Scene:
             else:
                 self.loaded_iter = load_iteration
             print(f"Loading trained model at iteration {self.loaded_iter}")
-        if not self.loaded_iter:
-            raise NotImplementedError(
-                "initialising a scene from its point cloud needs the 3-NN scale "
-                "init of the CLI-trainer slice (ROADMAP.md, queue A); pass "
-                "load_iteration to render a saved iteration"
-            )
 
         info = D.read_scene(self.source_path, images_dir, white_background, eval_split)
         self.scene_info = info
+
+        if not self.loaded_iter:
+            self.model_path.mkdir(parents=True, exist_ok=True)
+            try:
+                shutil.copyfile(info.ply_path, self.model_path / "input.ply")
+            except OSError:
+                pass
+            cam_json = [
+                D.camera_to_json(i, c)
+                for i, c in enumerate(info.test_cameras + info.train_cameras)
+            ]
+            (self.model_path / "cameras.json").write_text(json.dumps(cam_json))
 
         if shuffle:
             rng = random.Random(seed)
@@ -74,10 +85,19 @@ class Scene:
             D.load_camera(c, resolution, device=self.device) for c in info.test_cameras
         ]
 
-        ply_path = self.model_path / "point_cloud" / f"iteration_{self.loaded_iter}" / "point_cloud.ply"
-        self.gaussians = ply_io.load_gaussian_ply(
-            ply_path, new_sh_degree=new_sh_degree, device=self.device
-        )
+        if self.loaded_iter:
+            ply_path = self.model_path / "point_cloud" / f"iteration_{self.loaded_iter}" / "point_cloud.ply"
+            self.gaussians = ply_io.load_gaussian_ply(
+                ply_path, new_sh_degree=new_sh_degree, device=self.device
+            )
+        else:
+            pts, cols, _ = info.point_cloud
+            self.gaussians = G.from_point_cloud(pts, cols, max_sh_degree=max_sh_degree, device=self.device)
+
+    def save(self, iteration: int, scene: "G.GaussianScene | None" = None) -> Path:
+        out = self.model_path / "point_cloud" / f"iteration_{iteration}" / "point_cloud.ply"
+        ply_io.save_gaussian_ply(scene if scene is not None else self.gaussians, out)
+        return out
 
     def getTrainCameras(self):
         return self.train_cameras

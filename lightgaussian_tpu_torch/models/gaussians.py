@@ -6,9 +6,6 @@ checkpoints and renders compare slot for slot. Parameterization: log-scales
 (exp activation), logit opacity (sigmoid), unnormalized quaternion
 (normalized in the covariance builder), SH split into a DC band and `rest`
 coefficients.
-
-`from_point_cloud` needs the 3-NN scale initialisation (`ops/knn`), which
-comes with the CLI-trainer slice (ROADMAP A2).
 """
 from __future__ import annotations
 
@@ -17,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from lightgaussian_tpu_torch.ops import knn
 from lightgaussian_tpu_torch.ops import sh as sh_ops
 from lightgaussian_tpu_torch.utils.device import resolve_device
 
@@ -122,4 +120,58 @@ def fill_scene(scene: GaussianScene, arrays: dict, n: int) -> GaussianScene:
         new[k] = buf
     alive = scene.alive.clone()
     alive[:n] = True
+    return dataclasses.replace(scene, alive=alive, **new)
+
+
+def from_point_cloud(
+    points: np.ndarray,
+    colors: np.ndarray,
+    max_sh_degree: int = 3,
+    device: str | torch.device = "cuda",
+) -> GaussianScene:
+    """A scene from an SfM point cloud, as the reference's `create_from_pcd`
+    makes it: DC SH from RGB, isotropic log-scale from the square root of
+    the mean squared distance to the 3 nearest points, identity rotation,
+    opacity 0.1. The 3-NN search runs on `device`."""
+    n = points.shape[0]
+    scene = empty_scene(round_capacity(n), max_sh_degree, device=device)
+    dev = scene.means.device
+
+    pts = torch.from_numpy(np.array(points, dtype=np.float32)).to(dev)
+    dist2 = torch.clamp(knn.mean_sq_dist_to_3nn(pts), min=1e-7)
+    log_scale = torch.log(torch.sqrt(dist2))[:, None].repeat(1, 3)
+    sh_dc = sh_ops.rgb_to_sh(torch.from_numpy(np.array(colors, dtype=np.float32)).to(dev))
+    opacity_logit = float(np.log(0.1 / (1.0 - 0.1)))
+
+    def fill(buf, vals):
+        new = buf.clone()
+        new[:n] = vals
+        return new
+
+    return dataclasses.replace(
+        scene,
+        means=fill(scene.means, pts),
+        sh_dc=fill(scene.sh_dc, sh_dc),
+        log_scales=fill(scene.log_scales, log_scale),
+        opacity_logits=fill(scene.opacity_logits, opacity_logit),
+        alive=fill(scene.alive, True),
+    )
+
+
+def compact(scene: GaussianScene, new_capacity: int | None = None) -> GaussianScene:
+    """Pack alive Gaussians to the front, in their order (one stable sort by
+    the dead flag), optionally into another capacity; rows past a smaller
+    one are cut."""
+    order = torch.argsort((~scene.alive).to(torch.uint8), stable=True)  # alive first
+    n_alive = scene.alive.sum()
+    cap = scene.capacity if new_capacity is None else new_capacity
+
+    def reorder(x):
+        x = x[order]
+        if cap <= scene.capacity:
+            return x[:cap]
+        return torch.nn.functional.pad(x, [0, 0] * (x.dim() - 1) + [0, cap - scene.capacity])
+
+    new = {k: reorder(v) for k, v in scene.params().items()}
+    alive = torch.arange(cap, device=scene.alive.device) < n_alive
     return dataclasses.replace(scene, alive=alive, **new)

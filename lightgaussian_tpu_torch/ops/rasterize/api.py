@@ -6,10 +6,11 @@ radii and visibility. `method` selects "tiled" (binning + the CUDA blend
 kernels; plain torch on the CPU) or "reference" (the plain oracle).
 `fast=True` selects the render-only kernel for inference callers. The
 default exact path is differentiable in the scene's parameters, `bg` and
-`mean2d_offset` (the training step's path).
+`mean2d_offset` (the training step's path). `count_render` adds the
+per-Gaussian `gaussians_count` and `important_score`, the inputs of the
+Global Significance Score; it has no backward.
 
-Cached binning (trajectory reuse) and `count_render` (GSS statistics) come
-with later slices.
+Cached binning (trajectory reuse) comes with a later slice.
 """
 from __future__ import annotations
 
@@ -34,6 +35,8 @@ class RenderOutput:
     radii: torch.Tensor  # [N] int32
     visibility: torch.Tensor  # [N] bool (radii > 0)
     num_instances: int  # live binned instances (tiled path; 0 for reference)
+    gaussians_count: Optional[torch.Tensor] = None  # [N] int32 (count_render)
+    important_score: Optional[torch.Tensor] = None  # [N] f32 (count_render)
 
 
 def default_max_instances(scene: GaussianScene) -> int:
@@ -81,4 +84,40 @@ def render(
         radii=splats.radius,
         visibility=splats.radius > 0,
         num_instances=total,
+    )
+
+
+@torch.no_grad()
+def count_render(
+    scene: GaussianScene,
+    camera: Camera,
+    bg: torch.Tensor,
+    scale_modifier: float = 1.0,
+    max_instances: Optional[int] = None,
+    method: str = "tiled",
+) -> RenderOutput:
+    """Forward render plus per-Gaussian blending statistics (no gradient)."""
+    splats = preprocess(scene, camera, scale_modifier=scale_modifier)
+    stage_marks.mark("preprocess")
+    if method == "reference":
+        image, final_t, cnt, imp = ref_mod.blend_reference(
+            splats, camera.width, camera.height, bg, with_counts=True
+        )
+        total = 0
+    elif method == "tiled":
+        if max_instances is None:
+            max_instances = default_max_instances(scene)
+        image, final_t, total, cnt, imp = tiled_mod.blend_tiled_counting(
+            splats, bg, camera.width, camera.height, max_instances
+        )
+    else:
+        raise ValueError(f"unknown render method {method!r}")
+    return RenderOutput(
+        render=image,
+        final_T=final_t,
+        radii=splats.radius,
+        visibility=splats.radius > 0,
+        num_instances=total,
+        gaussians_count=cnt,
+        important_score=imp,
     )

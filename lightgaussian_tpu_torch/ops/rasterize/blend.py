@@ -1,10 +1,12 @@
-"""Per-tile front-to-back alpha blend and its backward: the CUDA kernels,
-their plain versions, and their launch counters.
+"""Per-tile front-to-back alpha blend, its backward and its counting form:
+the CUDA kernels, their plain versions, and their launch counters.
 
-Port of `blend_forward`, `blend_forward_fast` and `blend_backward` of
+Port of `blend_forward`, `blend_forward_fast`, `blend_backward`,
+`blend_forward_counting` and `unchunk_transpose` of
 `lightgaussian_tpu/ops/rasterize/pallas_blend.py`. The kernels live in
-`csrc/blend_forward.cu` and `csrc/blend_backward.cu`; those files say what
-bounds them and how they are laid out. They are built with `nvcc` for
+`csrc/blend_forward.cu`, `csrc/blend_backward.cu`, `csrc/blend_count.cu`
+and `csrc/unchunk_transpose.cu`; those files say what bounds them and how
+they are laid out. They are built with `nvcc` for
 sm_90a at first use (`utils/cuda_build.py`) and bound with `ctypes`.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
@@ -23,7 +25,8 @@ version on the card.
 
 Inputs: `tile_starts` int32 [T+1] and `inst` float32 [M, FEAT_WIDTH] from
 `binning.bin_splats`. Outputs: tile RGB [T, 3, 1024] and tile T [T, 1,
-1024]; the backward's per-Gaussian gradients [N, FEAT_WIDTH].
+1024]; the backward's per-Gaussian gradients [N, FEAT_WIDTH]; the counting
+blend's per-Gaussian importance float32 [N] and hit count int32 [N].
 """
 from __future__ import annotations
 
@@ -52,6 +55,8 @@ BATCH = 128  # instances per chunk, in the kernels and in their plain versions
 
 FORWARD_SOURCE = cuda_build.CSRC / "blend_forward.cu"
 BACKWARD_SOURCE = cuda_build.CSRC / "blend_backward.cu"
+COUNT_SOURCE = cuda_build.CSRC / "blend_count.cu"
+UNCHUNK_SOURCE = cuda_build.CSRC / "unchunk_transpose.cu"
 
 # Tiles the plain versions blend at once: about _TILE_GROUP * BATCH * PIX
 # floats per intermediate.
@@ -65,15 +70,20 @@ _TILE_GROUP = 256
 WORK_KINDS = ("culled", "faint", "applied", "stopping", "past_stop")
 
 # Launches of each kernel since the last reset (the plain versions do not count).
-LAUNCHES = {"blend_forward": 0, "blend_forward_fast": 0, "blend_backward": 0}
+LAUNCHES = {"blend_forward": 0, "blend_forward_fast": 0, "blend_backward": 0, "blend_count": 0,
+            "unchunk_transpose": 0}
 _SYMBOLS = {
     "blend_forward": "lg_blend_forward",
     "blend_forward_fast": "lg_blend_forward_fast",
     "blend_backward": "lg_blend_backward",
+    "blend_count": "lg_blend_count",
+    "unchunk_transpose": "lg_unchunk_transpose",
 }
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FORWARD_ARGS = [_P] * 4 + [_I] * 4 + [_P]
 _BACKWARD_ARGS = [_P] * 6 + [_I] * 4 + [_P]
+_COUNT_ARGS = [_P] * 7 + [_I] * 4 + [_P]
+_UNCHUNK_ARGS = [_P] * 2 + [_I] * 2 + [_P]
 
 
 def reset_launch_counts() -> None:
@@ -89,6 +99,14 @@ def _forward_library() -> ctypes.CDLL:
 
 def _backward_library() -> ctypes.CDLL:
     return cuda_build.load(BACKWARD_SOURCE, {"lg_blend_backward": _BACKWARD_ARGS})
+
+
+def _count_library() -> ctypes.CDLL:
+    return cuda_build.load(COUNT_SOURCE, {"lg_blend_count": _COUNT_ARGS})
+
+
+def _unchunk_library() -> ctypes.CDLL:
+    return cuda_build.load(UNCHUNK_SOURCE, {"lg_unchunk_transpose": _UNCHUNK_ARGS})
 
 
 def _check_inputs(tile_starts: torch.Tensor, inst: torch.Tensor, grid: TileGrid) -> None:
@@ -191,6 +209,93 @@ def blend_backward(
     return grads
 
 
+def _check_counting_inputs(tile_starts, inst, gid_sorted, grid: TileGrid, num_gaussians: int) -> None:
+    _check_inputs(tile_starts, inst, grid)
+    m = inst.shape[0]
+    if gid_sorted.dtype != torch.int64 or tuple(gid_sorted.shape) != (m,):
+        raise ValueError(f"gid_sorted must be int64 [{m}], got {gid_sorted.dtype} {tuple(gid_sorted.shape)}")
+    if gid_sorted.device != inst.device:
+        raise ValueError(f"gid_sorted on {gid_sorted.device}, inst on {inst.device}")
+    if not gid_sorted.is_contiguous():
+        raise ValueError("gid_sorted must be contiguous")
+    if num_gaussians < 0:
+        raise ValueError(f"num_gaussians must not be negative, got {num_gaussians}")
+
+
+def blend_forward_counting(
+    tile_starts: torch.Tensor,
+    inst: torch.Tensor,
+    gid_sorted: torch.Tensor,
+    grid: TileGrid,
+    num_gaussians: int,
+):
+    """Counting blend (B5): the exact blend's (tile_rgb, tile_T), plus per
+    Gaussian the summed blending weight alpha * T over every pixel it was
+    blended into (`imp` float32 [N]) and the number of those pixels (`cnt`
+    int32 [N]). `gid_sorted` is the binning's instance -> Gaussian map (every
+    entry below `num_gaussians`). Gaussians that no tile holds get exact
+    zeros. No backward."""
+    _check_counting_inputs(tile_starts, inst, gid_sorted, grid, num_gaussians)
+    if inst.device.type == "cpu":
+        rgb, t, imp, cnt, _ = plain_blend_counting(tile_starts, inst, gid_sorted, grid, num_gaussians)
+        return rgb, t, imp, cnt
+    if inst.device.type != "cuda":
+        raise ValueError(f"blend kernels run on CUDA or, as plain torch, on the CPU; got {inst.device}")
+    dev = inst.device
+    t = grid.num_tiles
+    rgb = torch.empty((t, 3, PIX), dtype=torch.float32, device=dev)
+    t_out = torch.empty((t, 1, PIX), dtype=torch.float32, device=dev)
+    imp = torch.zeros(num_gaussians, dtype=torch.float32, device=dev)
+    cnt = torch.zeros(num_gaussians, dtype=torch.int32, device=dev)
+    fn = _count_library().lg_blend_count
+    with torch.cuda.device(dev):
+        err = fn(
+            tile_starts.data_ptr(), inst.data_ptr(), gid_sorted.data_ptr(), rgb.data_ptr(),
+            t_out.data_ptr(), imp.data_ptr(), cnt.data_ptr(), t, grid.tiles_x, grid.width,
+            grid.height, cuda_build.stream_of(inst),
+        )
+    cuda_build.check(err, _SYMBOLS["blend_count"])
+    LAUNCHES["blend_count"] += 1
+    return rgb, t_out, imp, cnt
+
+
+# The transpose kernel's grid has one row of blocks per 32 features.
+_UNCHUNK_MAX_FEATURES = 32 * 65535
+
+
+def unchunk_transpose(x: torch.Tensor) -> torch.Tensor:
+    """[NC, F, 128] chunk-major -> [NC * 128, F] instance-major (B8), for
+    float32 of any NC and F. Nothing in the port's product paths calls it
+    (their buffers are instance-major from the start); it is the
+    counterpart of the JAX package's transpose kernel, for tools that read
+    chunk-major buffers."""
+    if x.dtype != torch.float32 or x.dim() != 3 or x.shape[2] != BATCH:
+        raise ValueError(f"x must be float32 [NC, F, {BATCH}], got {x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if x.device.type == "cpu":
+        return plain_unchunk_transpose(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"unchunk_transpose runs on CUDA or, as plain torch, on the CPU; got {x.device}")
+    nc, f, _ = x.shape
+    if f > _UNCHUNK_MAX_FEATURES:
+        raise ValueError(f"unchunk_transpose takes at most {_UNCHUNK_MAX_FEATURES} features, got {f}")
+    out = torch.empty((nc * BATCH, f), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    fn = _unchunk_library().lg_unchunk_transpose
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), out.data_ptr(), nc, f, cuda_build.stream_of(x))
+    cuda_build.check(err, _SYMBOLS["unchunk_transpose"])
+    LAUNCHES["unchunk_transpose"] += 1
+    return out
+
+
+def plain_unchunk_transpose(x: torch.Tensor) -> torch.Tensor:
+    """Plain-torch version of `unchunk_transpose`."""
+    return x.permute(0, 2, 1).reshape(-1, x.shape[1])
+
+
 def reduce_per_gaussian(per_inst: torch.Tensor, gid_sorted: torch.Tensor, num_gaussians: int) -> torch.Tensor:
     """Sum per-instance rows [M, F] into per-Gaussian rows [N, F]."""
     out = torch.zeros((num_gaussians, per_inst.shape[1]), dtype=per_inst.dtype, device=per_inst.device)
@@ -284,6 +389,36 @@ def plain_blend(tile_starts: torch.Tensor, inst: torch.Tensor, grid: TileGrid, e
     exact blend walks a pixel only until its blend ends, the render-only one
     every pixel until the tile exits. It bounds the kernels' time.
     """
+    return _plain_forward(tile_starts, inst, grid, exact, None)
+
+
+def plain_blend_counting(
+    tile_starts: torch.Tensor,
+    inst: torch.Tensor,
+    gid_sorted: torch.Tensor,
+    grid: TileGrid,
+    num_gaussians: int,
+):
+    """Plain-torch version of the counting kernel: `plain_blend(exact=True)`
+    with, per instance, the sum of its weights w = alpha * T over the tile's
+    pixels and the number of pixels with w > 0, added up per Gaussian with
+    `index_add_`. Instances past a tile's exit keep zeros: once every pixel
+    has stopped, nothing after it is applied.
+
+    Returns (tile_rgb, tile_T, imp float32 [N], cnt int32 [N], work [T, 5]).
+    """
+    m, dev = inst.shape[0], inst.device
+    w_sum = torch.zeros(m, dtype=torch.float32, device=dev)
+    hits = torch.zeros(m, dtype=torch.int64, device=dev)
+    rgb, t, work = _plain_forward(tile_starts, inst, grid, True, (w_sum, hits))
+    imp = torch.zeros(num_gaussians, dtype=torch.float32, device=dev).index_add_(0, gid_sorted, w_sum)
+    cnt = torch.zeros(num_gaussians, dtype=torch.int64, device=dev).index_add_(0, gid_sorted, hits)
+    return rgb, t, imp, cnt.to(torch.int32), work
+
+
+def _plain_forward(tile_starts, inst, grid: TileGrid, exact: bool, stats):
+    """The forward walk of `plain_blend`; `stats`, when given, is the pair
+    (w_sum [M], hits [M]) of per-instance tensors to fill."""
     dev = inst.device
     num_tiles = grid.num_tiles
     rgb_out = torch.zeros((num_tiles, 3, PIX), dtype=torch.float32, device=dev)
@@ -301,9 +436,12 @@ def plain_blend(tile_starts: torch.Tensor, inst: torch.Tensor, grid: TileGrid, e
         step = 0
         while act.numel():
             tid = ids[act]
-            _, row_ok, f, _, _, power, _, alpha, elig = walk.chunk(inst, tid, step)
+            rows, row_ok, f, _, _, power, _, alpha, elig = walk.chunk(inst, tid, step)
             _, incl, t_i, apply = _prefixes(alpha, t_naive[act])
             w = torch.where(apply, alpha * t_i, 0.0)
+            if stats is not None:  # each row belongs to one tile
+                stats[0][rows[row_ok]] = w.sum(dim=-1)[row_ok]
+                stats[1][rows[row_ok]] = (w > 0.0).sum(dim=-1)[row_ok]
             col = f[..., FEAT_R:FEAT_B + 1]  # [A, BATCH, 3]
             rgb[act] += torch.einsum("abc,abp->acp", col, w)
             t_naive[act] = t_naive[act] * incl[:, -1]

@@ -10,8 +10,8 @@ naive transmittance (product over all eligible earlier alphas) the test
 T_i*(1-alpha_i) >= T_EPS is monotone in i, so "apply iff it passes" equals
 the sequential frozen-T rule.
 
-Slow (O(N * H * W)): the test oracle for tiny scenes. The per-Gaussian
-counts (`with_counts`) come with the CLI-trainer slice (ROADMAP A2).
+Slow (O(N * H * W)): the test oracle for tiny scenes, and with
+`with_counts` the oracle of the counting blend.
 """
 from __future__ import annotations
 
@@ -33,13 +33,17 @@ def blend_reference(
     width: int,
     height: int,
     bg: torch.Tensor,
+    with_counts: bool = False,
 ):
     """Blend depth-sorted splats over the full image, each Gaussian
     restricted to pixels whose tile overlaps its radius rect (as the tiled
     path does).
 
     Returns:
-      image [3, H, W], final_T [H, W].
+      image [3, H, W], final_T [H, W], and with `with_counts` the pair
+      (count int32 [N], importance float32 [N]) in the original Gaussian
+      order: the pixels each Gaussian was blended into, and its summed
+      blending weight alpha * T over them.
     """
     dev = splats.mean2d.device
     order = torch.argsort(splats.depth, stable=True)
@@ -59,6 +63,7 @@ def blend_reference(
     rgb_acc = torch.zeros((hw, 3), dtype=torch.float32, device=dev)
     t_naive = torch.ones(hw, dtype=torch.float32, device=dev)
     t_actual = torch.ones(hw, dtype=torch.float32, device=dev)
+    w_sums, hit_counts = [], []
     for c0 in range(0, order.numel(), _CHUNK):
         m2 = mean2d[c0:c0 + _CHUNK]
         con = conic[c0:c0 + _CHUNK]
@@ -88,7 +93,19 @@ def blend_reference(
         rgb_acc = rgb_acc + w.T @ col
         t_naive = t_naive * torch.exp(torch.sum(log1m, dim=0))
         t_actual = t_actual * torch.exp(torch.sum(torch.where(apply, log1m, 0.0), dim=0))
+        if with_counts:
+            w_sums.append(w.sum(dim=1))
+            hit_counts.append((w > 0.0).sum(dim=1))
 
     image = rgb_acc + t_actual[:, None] * bg[None, :]
     image = image.T.reshape(3, height, width)
-    return image, t_actual.reshape(height, width)
+    final_t = t_actual.reshape(height, width)
+    if not with_counts:
+        return image, final_t
+    n = order.numel()
+    imp = torch.zeros(n, dtype=torch.float32, device=dev)
+    cnt = torch.zeros(n, dtype=torch.int32, device=dev)
+    if n:
+        imp[order] = torch.cat(w_sums)
+        cnt[order] = torch.cat(hit_counts).to(torch.int32)
+    return image, final_t, cnt, imp

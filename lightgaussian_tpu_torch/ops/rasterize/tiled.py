@@ -1,13 +1,16 @@
 """Tiled blend: binning plus the blend kernels, assembled into an image.
 
 Port of `lightgaussian_tpu/ops/rasterize/tiled.py` (`blend_tiled`,
-`blend_tiled_fast`). `blend_tiled` is differentiable: a
+`blend_tiled_fast`, `blend_tiled_counting`). `blend_tiled` is differentiable: a
 `torch.autograd.Function` whose forward is the exact blend (B1) and whose
 backward runs the backward kernel (B2) over the forward's binning, with
 the per-pixel remaining-contribution seed of the JAX VJP (`tiled.py:66-122`
 there). The boundary sits after the (autograd-friendly) preprocess: inputs
 are screen-space splats. The render-only blend has no backward, as in the
-JAX package, and refuses inputs that require a gradient.
+JAX package, and refuses inputs that require a gradient. The counting
+blend runs without a graph; its kernel (B5) adds each instance's statistics
+to its Gaussian itself, so the JAX package's gather and segmented sum after
+the kernel have no counterpart.
 """
 from __future__ import annotations
 
@@ -143,3 +146,27 @@ def blend_tiled_fast(
     image, final_t = _compose(tile_rgb, tile_t, bg, grid, width, height)
     stage_marks.mark("compose")
     return image, final_t, b.total
+
+
+@torch.no_grad()
+def blend_tiled_counting(
+    splats: Splats,
+    bg: torch.Tensor,
+    width: int,
+    height: int,
+    max_instances: int,
+):
+    """Counting blend (kernel B5), not differentiable. Returns (image,
+    final_T, total, count int32 [N], importance float32 [N]): the exact
+    blend's image, and per Gaussian the pixels it was blended into and its
+    summed blending weight over them."""
+    grid = make_grid(width, height)
+    b = binning_mod.bin_splats(_detached(splats), grid, max_instances)
+    stage_marks.mark("binning")
+    tile_rgb, tile_t, imp, cnt = blend_mod.blend_forward_counting(
+        b.tile_starts, b.inst, b.gid_sorted, grid, splats.mean2d.shape[0]
+    )
+    stage_marks.mark("B5")
+    image, final_t = _compose(tile_rgb, tile_t, bg, grid, width, height)
+    stage_marks.mark("compose")
+    return image, final_t, b.total, cnt, imp

@@ -61,13 +61,13 @@ def exponential_decay_every(gamma: float, every: int):
     return schedule
 
 
-def safe_state(quiet: bool = False) -> None:
-    """Seed the host RNGs and torch's default generator with 0, and unless
-    `quiet`, timestamp every stdout line (as the reference's `safe_state`
-    does)."""
-    random.seed(0)
-    np.random.seed(0)
-    torch.manual_seed(0)
+def safe_state(quiet: bool = False, seed: int = 0) -> None:
+    """Seed the host RNGs and torch's default generator with `seed`, and
+    unless `quiet`, timestamp every stdout line (as the reference's
+    `safe_state` does)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
 
     if not quiet and not getattr(sys.stdout, "_lg_wrapped", False):
         orig_write = sys.stdout.write

@@ -258,8 +258,15 @@ def test_unported_inputs_raise(workspace, tmp_path):
         tds.read_scene(tmp_path / "colmap")
     with pytest.raises(NotImplementedError, match="compression"):
         tscene.Scene(str(src), str(model), load_iteration=-1, load_vq=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="point cloud"):
-        tscene.Scene(str(src), str(model), device="cpu")
+    # a fresh run is ported now: it starts from the point cloud, as the JAX Scene does
+    fresh = tscene.Scene(str(src), str(tmp_path / "fresh"), device="cpu")
+    jfresh = jscene.Scene(str(src), str(tmp_path / "jfresh"), load_images=False)
+    assert fresh.loaded_iter is None and int(fresh.gaussians.alive.sum()) == 50
+    np.testing.assert_allclose(_np(fresh.gaussians.log_scales), np.asarray(jfresh.gaussians.log_scales),
+                               rtol=1e-5, atol=1e-6)
+    assert (tmp_path / "fresh" / "input.ply").read_bytes() == (src / "points3d.ply").read_bytes()
+    assert json.loads((tmp_path / "fresh" / "cameras.json").read_text()) == json.loads(
+        (tmp_path / "jfresh" / "cameras.json").read_text())
     with pytest.raises(NotImplementedError, match="compression"):
         tcli.main(["-s", str(src), "-m", str(model), "--quiet", "--device", "cpu", "--load_vq"])
 
@@ -357,7 +364,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lightgaussian_tpu'))\n"
         "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 35 else 0)\n"
+        "sys.exit(1 if bad or len(mods) < 44 else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

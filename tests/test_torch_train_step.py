@@ -383,3 +383,29 @@ def test_training_modules_import_neither_jax_nor_the_jax_package():
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_positional_gradient_scale_on_a_larger_frame():
+    """The densify statistic carries the 0.5 W and 0.5 H factors of NDC
+    units: at 192x128 (24 tiles, non-square) one step's `xyz_grad_accum`
+    equals JAX's within 5e-5 of its largest entry, as at 96x64."""
+    w, h, n = 192, 128, 96
+    bg = np.zeros(3, np.float32)
+    target = jsyn.random_scene(n=n, seed=3)
+    eye = [1.2, -0.3, -3.8]
+    jc = JCamera.look_at(eye=eye, target=[0, 0, 0], width=w, height=h)
+    tc = TCamera.look_at(eye=eye, target=[0, 0, 0], width=w, height=h, device="cpu")
+    gt = np.clip(np.asarray(jrender(target, jc, jnp.asarray(bg), method="reference").render), 0.0, 1.0)
+    student = jsyn.random_scene(n=n, seed=3, capacity=128)
+    means = np.array(student.means)
+    means[:n] += np.random.default_rng(4).normal(0.0, 0.1, (n, 3)).astype(np.float32)
+    state0 = jstate.init_train_state(student.with_params({**student.params(), "means": jnp.asarray(means)}))
+    js, _ = jstep.make_train_step(JOpt(), SPATIAL, MAX_INST, interpret=True)(
+        state0, jc.with_gt(jnp.asarray(gt)), jnp.asarray(bg))
+    ts, _ = tstep.make_train_step(TOpt(), SPATIAL, MAX_INST)(
+        convert.train_state_from_numpy(_jax_state_to_numpy(state0), device="cpu"),
+        tc.with_gt(torch.from_numpy(gt)), torch.from_numpy(bg))
+    accum = np.asarray(js.xyz_grad_accum)
+    assert (accum[:n] > 0).sum() > 0.5 * n
+    np.testing.assert_allclose(_np(ts.xyz_grad_accum) / accum.max(), accum / accum.max(), atol=5e-5, rtol=0)
+    np.testing.assert_array_equal(_np(ts.denom), np.asarray(js.denom))
