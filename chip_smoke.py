@@ -6,13 +6,22 @@ Usage: python3 chip_smoke.py        (from the repository root; needs one CUDA ca
 Phases, each of which exits non-zero on failure:
   1. The card (nvidia-smi name and power limit) and the kernels' build: the
      six CUDA sources compiled at once, one nvcc each, with ptxas's
-     registers, spills and shared memory for every kernel.
+     registers, spills and shared memory for every kernel (the forward and
+     backward blends, their tile-ordering kernel included).
   2. Each kernel against its plain PyTorch version on the card:
      - the exact and render-only blends (B1, B6) on the 2048-Gaussian
        192x128 parity scene and on a scene whose tiles saturate (so the early
        exit runs): atol 2e-4, the JAX package's compiled-kernel tolerance
        (other exp and summation order); the render-only kernel against the
        exact one at 2e-3 (they differ on saturated pixels only);
+     - B1, B6 and B2 again on a scene made to stress their cull (every
+       Gaussian in every tile's range: sub-pixel Gaussians, Gaussians larger
+       than a tile, opacities on both sides of 1/255, needles, means outside
+       the image), at the same tolerances, with `blend.cull_census` of it;
+     - the device's cull itself (`blend.instance_cull`: the cells each
+       instance may reach in its tile, and the level under which a pair is
+       spared its exp) against its plain twins on those scenes: no cell the
+       plain rectangle keeps may be missing, and the levels agree to 1e-4;
      - the blend backward (B2) on the same scenes, per Gaussian: its
        difference from the plain version divided by the plain version's
        largest magnitude per feature, atol 1e-5 (its atomics add in a
@@ -39,7 +48,8 @@ Phases, each of which exits non-zero on failure:
      default) over the same cameras. Launch counts are read around each path.
      The blend kernels, the counting blend included, are held against their
      plain versions at these shapes and timed, and so is the render, split
-     at its stage marks. At this size a pair that sits on a threshold may
+     at its stage marks; the device's cull is held against its plain twins
+     at this size too. At this size a pair that sits on a threshold may
      flip between nvcc's expf and torch's exp, so the counting blend's hit
      counts are held by the sum of |difference| over the sum of counts
      (COUNT_RATIO_TOL), with the number of Gaussians that differ printed.
@@ -71,8 +81,18 @@ Phases, each of which exits non-zero on failure:
      B7 one per evaluated view. The artifacts, the prune's share, the
      falling test L1 and the resumed state are checked; the trainer's wall
      time, its iterations per second and the cost of its parts are printed.
-Then a `{"kernels": [...]}` line of the nine kernels, the card line, and the
-final `{"ok": true, "device": {...}}` line.
+Each phase ends with its own seconds. Then a `{"kernels": [...]}` line of the
+nine kernels, the card line, and the final `{"ok": true, "device": {...}}`
+line.
+
+Bounds. `bound_ms` is the least time the card could take for a kernel's
+outputs whatever computes them: the larger of its bytes over the memory rate
+and its operations over their peak rates. For the blends the operations are
+those of the pairs that change an output, with multiply-adds fused (see
+F32_MIN_PER_PAIR); `bound_walk_ms` beside it is the cost of evaluating every
+pair of the tiles' ranges the way the first version of these kernels did,
+the figure earlier runs printed as the bound. A kernel timed under its
+`bound_ms` fails the run.
 
 The script imports nothing of JAX. It builds everything it runs from the
 sources beside it; without CUDA, or without the package beside it, it fails.
@@ -100,7 +120,8 @@ REPO = Path(__file__).resolve().parent
 # operations, and 3.35 TB/s of HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# The kernels are built with --fmad=false, so each float32 add, multiply,
+# The walk bound (`bound_walk_ms`): the kernels are built with --fmad=false,
+# so each float32 add, multiply,
 # compare or min of their source is one instruction. The FP32 pipes issue
 # one instruction per lane and clock: half the flop rate. exp2 and the
 # reciprocal run on the MUFU pipe at 16 results per SM and clock against 128
@@ -130,6 +151,24 @@ MUFU_PER_PAIR_BWD = {"culled": 0, "faint": 1, "past_stop": 0, "stopping": 1, "ap
 # The counting blend, csrc/blend_count.cu: the exact forward's pairs; an
 # applied pair adds the weight sum's add, the w > 0 compare and the count.
 F32_PER_PAIR_COUNT = {**F32_PER_PAIR, "applied": F32_PER_PAIR["applied"] + 3}
+# The least any design pays for the same outputs: only the pairs that
+# change one (applied and stopping; for the render-only blend also the
+# eligible pairs past a stop, which move its naive T), their arithmetic with
+# multiply-adds fused and log2(e) folded into the conic, no compare or select
+# counted:
+#   dx, dy (2); power = dx (ha dx + hb dy) + (hc dy) dy (5); opa * e, min (2);
+#   T - alpha T (1)                                                 10 FP32, 1 MUFU
+#   applied: alpha T and three colour multiply-adds                 +4
+F32_MIN_PER_PAIR = {"culled": 0, "faint": 0, "past_stop": 10, "stopping": 10, "applied": 14}
+MUFU_MIN_PER_PAIR = {"culled": 0, "faint": 0, "past_stop": 1, "stopping": 1, "applied": 1}
+# The backward's applied pair: colour . g (3), alpha T (1), r_i (1), r_i times
+# the reciprocal and d_alpha (2), d_power (1), q1, q2 (2), the nine sums (9):
+# +19 on the 10, and the reciprocal. The reduce over a tile's pixels is left
+# out: how much of it there is depends on the design.
+F32_MIN_PER_PAIR_BWD = {"culled": 0, "faint": 0, "past_stop": 0, "stopping": 10, "applied": 29}
+MUFU_MIN_PER_PAIR_BWD = {"culled": 0, "faint": 0, "past_stop": 0, "stopping": 1, "applied": 2}
+# The counting blend's applied pair adds the weight sum's add.
+F32_MIN_PER_PAIR_COUNT = {**F32_MIN_PER_PAIR, "applied": F32_MIN_PER_PAIR["applied"] + 1}
 # The blur: 11 multiplies and 10 adds per output element and pass.
 F32_PER_BLUR_OUTPUT = 42
 
@@ -145,6 +184,7 @@ SMALL_SCENES = {
     "saturating scene 96x64": (dict(n=800, seed=3, extent=1.5, scale_range=(0.15, 0.4)), 96, 64),
 }
 MIN_SMALL_INSTANCES = 2000
+CULL_STRESS = dict(n=1536, width=192, height=128, seed=5)
 BLUR_SHAPES = ((15, 37, 53), (3, 64, 96), (9, 1080, 1920))
 SSIM_SHAPE = (3, 128, 192)
 KERNEL_TOL = 2e-4
@@ -155,6 +195,7 @@ B2_TOL = 1e-5  # normalised per feature; 4x the largest difference seen, a decad
 # kernel 4.7e-5); an error of 0.1% on most Gaussians fails.
 B2_MEDIAN_REL_TOL = 1e-3
 FAST_VS_EXACT_TOL = 2e-3
+CULL_LEVEL_TOL = 1e-4  # logf against torch.log; a hundredth of the margin the level carries for it
 BLUR_TOL = 1e-5
 SSIM_VALUE_TOL = 1e-6
 SSIM_GRAD_TOL = 1e-5
@@ -275,8 +316,10 @@ class Smoke:
             times.append(time.perf_counter() - t0)
         return 1e3 * statistics.median(times)
 
-    def row(self, name, source, replaces, err, ms, plain_ms, ops_s, bytes_s, library_ms):
+    def row(self, name, source, replaces, err, ms, plain_ms, ops_s, bytes_s, library_ms, walk_s=None):
         bound_ms = 1e3 * max(ops_s, bytes_s)
+        if ms < bound_ms:
+            fail(f"{name} was timed at {ms:.4f} ms, under its bound of {bound_ms:.4f} ms: the bound or the timing is wrong")
         self.rows[name] = {
             "name": name,
             "route": "cuda",
@@ -290,6 +333,8 @@ class Smoke:
             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
             "library_ms": library_ms,
         }
+        if walk_s is not None:
+            self.rows[name]["bound_walk_ms"] = 1e3 * walk_s
         return bound_ms
 
 
@@ -329,6 +374,67 @@ def read_counts() -> dict:
     from lightgaussian_tpu_torch.utils import issue_probe
 
     return {**blend.LAUNCHES, **losses.LAUNCHES, **issue_probe.LAUNCHES}
+
+
+def blend_bounds(pairs: dict, f32_min: dict, mufu_min: dict, f32_walk: dict, mufu_walk: dict, n_bytes: int):
+    """A blend's bounds from its pairs by kind, as the plain version counted
+    them on this run's inputs: (seconds of the least operations, seconds of
+    the bytes, seconds of the walk over every pair, a line of the parts)."""
+    f32_s = sum(c * f32_min[k] for k, c in pairs.items()) / F32_INSTR_RATE
+    mufu_s = sum(c * mufu_min[k] for k, c in pairs.items()) / MUFU_RATE
+    walk_f32_s = sum(c * f32_walk[k] for k, c in pairs.items()) / F32_INSTR_RATE
+    walk_mufu_s = sum(c * mufu_walk[k] for k, c in pairs.items()) / MUFU_RATE
+    bytes_s = n_bytes / PEAK_BYTES
+    walk_s = max(walk_f32_s, walk_mufu_s, bytes_s)
+    parts = (f"least work: FP32 {1e3 * f32_s:.4f} ms, MUFU {1e3 * mufu_s:.4f} ms, bytes {1e3 * bytes_s:.4f} ms; "
+             f"walk of every pair {1e3 * walk_s:.4f} ms (FP32 {1e3 * walk_f32_s:.4f} ms, MUFU {1e3 * walk_mufu_s:.4f} ms)")
+    return max(f32_s, mufu_s), bytes_s, walk_s, parts
+
+
+def cull_stress_scene(s: Smoke):
+    """A binning made to stress the blends' cull: every Gaussian is in every
+    tile's range, in one random depth order, so most (instance, warp) pairs
+    are skipped and each kind of instance meets tiles near and far. Nearly two
+    fifths are sub-pixel to 1.5 pixels wide, a tenth larger than a tile with
+    opacities from under 1/255 up, a fifth mid-sized with opacities within a
+    factor of two of 1/255, a fifth needles (15 to 80 pixels by 0.55 to 0.9),
+    a tenth centred up to 60 pixels outside the image, and a few opaque blobs
+    crowd one corner so that pixels there saturate."""
+    from types import SimpleNamespace
+
+    from lightgaussian_tpu_torch.ops.rasterize import binning
+
+    torch = s.torch
+    n, w, h = CULL_STRESS["n"], CULL_STRESS["width"], CULL_STRESS["height"]
+    rng = np.random.default_rng(CULL_STRESS["seed"])
+    kind = rng.choice(6, size=n, p=[0.37, 0.1, 0.2, 0.2, 0.1, 0.03])
+    lo = np.array([0.15, 30.0, 2.0, 15.0, 4.0, 5.0])[kind]
+    hi = np.array([1.5, 120.0, 8.0, 80.0, 25.0, 10.0])[kind]
+    s1 = np.exp(rng.uniform(np.log(lo), np.log(hi)))
+    s2 = np.where(kind == 3, rng.uniform(0.55, 0.9, n), np.exp(rng.uniform(np.log(lo), np.log(hi))))
+    theta = rng.uniform(0.0, np.pi, n)
+    opa_lo = np.array([0.2, 0.002, 0.5 / 255, 0.5, 0.3, 0.95])[kind]
+    opa_hi = np.array([1.0, 0.05, 2.0 / 255, 0.99, 0.9, 0.99])[kind]
+    opa = np.exp(rng.uniform(np.log(opa_lo), np.log(opa_hi)))
+    mean = rng.uniform([0.0, 0.0], [w, h], (n, 2))
+    blob = kind == 5
+    mean[blob] = rng.uniform([40.0, 30.0], [90.0, 70.0], (int(blob.sum()), 2))
+    out = kind == 4
+    side = rng.integers(0, 2, n)
+    mean[out, 0] = np.where(side[out] == 0, -rng.uniform(1, 60, out.sum()), w + rng.uniform(1, 60, out.sum()))
+    c, sn, i1, i2 = np.cos(theta), np.sin(theta), 1.0 / s1**2, 1.0 / s2**2
+    conic = np.stack([c * c * i1 + sn * sn * i2, c * sn * (i1 - i2), sn * sn * i1 + c * c * i2], axis=1)
+    feats = np.concatenate([mean, conic, rng.uniform(0, 1, (n, 3)), opa[:, None]], axis=1).astype(np.float32)
+    order = rng.permutation(n)
+    grid = binning.make_grid(w, h)
+    t = grid.num_tiles
+    b = SimpleNamespace(
+        inst=torch.from_numpy(feats[order]).to(s.dev).repeat(t, 1).contiguous(),
+        tile_starts=(torch.arange(t + 1, dtype=torch.int32) * n).to(s.dev),
+        gid_sorted=torch.from_numpy(order).to(s.dev).repeat(t).contiguous(),
+        total=t * n,
+    )
+    return b, grid, n
 
 
 def backward_seed(s: Smoke, image, final_t, grid, seed: int):
@@ -377,6 +483,30 @@ def hold_backward(s: Smoke, b, grid, n, tile_g, tile_r, what):
     if unseen.any() and got[unseen].abs().max() > 0:
         fail(f"blend_backward gave a gradient to a Gaussian in no tile on {what}")
     return err, err_abs, work
+
+
+def hold_cull(s: Smoke, b, grid, what) -> None:
+    """The device's cull (`cull_cells` and `cull_level` of blend_tile.cuh,
+    through `blend.instance_cull`) against its plain twins, instance by
+    instance: a cell the plain rectangle keeps must not be missing."""
+    from lightgaussian_tpu_torch.ops.rasterize import blend
+
+    torch = s.torch
+    cells, level = blend.instance_cull(b.tile_starts, b.inst, grid)
+    s.sync()
+    w_cells, w_level = blend.plain_instance_cull(b.tile_starts, b.inst, grid)
+    missing = int(((w_cells & ~cells) != 0).sum())
+    extra = int(((cells & ~w_cells) != 0).sum())
+    whole = int((w_cells == 0xFFFFFFFF).sum())
+    none = int((w_cells == 0).sum())
+    finite = torch.isfinite(w_level)
+    same_kind = bool((torch.isfinite(level) == finite).all())
+    d_level = float((level[finite] - w_level[finite]).abs().max()) if finite.any() else 0.0
+    s.say(f"  {'device cull':20s} vs plain on {what}: {cells.numel()} instances, {whole} keep every cell and {none} "
+          f"none; the device lacks a cell of the plain rectangle in {missing} (must be 0) and has one more in "
+          f"{extra}; level max|d| = {d_level:.3e} (atol {CULL_LEVEL_TOL:.0e})")
+    if missing or not same_kind or d_level > CULL_LEVEL_TOL:
+        fail(f"the device's cull is narrower than its plain twin on {what}")
 
 
 def hold_counting(s: Smoke, b, grid, n, what, full_size: bool):
@@ -499,6 +629,7 @@ def phase2(s: Smoke) -> dict:
             fail(f"render-only kernel differs from the exact one on {what}")
         tile_g, tile_r = backward_seed(s, img_e, fin_e, grid, seed=i)
         hold_backward(s, b, grid, scene.capacity, tile_g, tile_r, what)
+        hold_cull(s, b, grid, what)
         hold_counting(s, b, grid, scene.capacity, what, full_size=False)
         tiled_out = count_render(scene, cam, bg_small, max_instances=1 << 16)
         oracle = count_render(scene, cam, bg_small, method="reference")
@@ -511,6 +642,24 @@ def phase2(s: Smoke) -> dict:
               f"importance max|d| = {d_imp:.3e} (atol {IMP_TOL:.0e} + rtol {IMP_RTOL:.0e}), {differ} hit counts differ")
         if d_img > KERNEL_TOL or imp_over > IMP_TOL or differ:
             fail(f"count_render's tiled path disagrees with the oracle on {what}")
+    b, grid, n = cull_stress_scene(s)
+    what = f"cull-stress scene {grid.width}x{grid.height}"
+    _, (rgb_e, t_e) = hold("blend_forward", b, grid, what)
+    hold("blend_forward_fast", b, grid, what)
+    img_e, fin_e = tiled._compose(rgb_e, t_e, bg_small, grid, grid.width, grid.height)
+    tile_g, tile_r = backward_seed(s, img_e, fin_e, grid, seed=len(SMALL_SCENES))
+    _, _, work = hold_backward(s, b, grid, n, tile_g, tile_r, what)
+    hold_cull(s, b, grid, what)
+    census = blend.cull_census(b.tile_starts, b.inst, grid)
+    whole = blend.plain_cull_rect(b.inst[:n], torch.zeros(1, device=s.dev), torch.zeros(1, device=s.dev))
+    unboxed = int(((whole[0] == 0) & (whole[1] == blend.TILE_SIZE - 1) & (whole[2] == 0)
+                   & (whole[3] == blend.TILE_SIZE - 1)).sum())
+    pairs = dict(zip(blend.WORK_KINDS, work.sum(dim=0).tolist()))
+    s.say(f"  {what}: {b.total} instances, pairs {pairs}; census {census}; the first tile keeps {unboxed} of its "
+          f"{n} instances whole")
+    if not (0 < census["cell_applied"] <= census["cell_reached"] < 0.5 * 4 * census["warp_walked"]
+            and pairs["applied"] > 0 and pairs["stopping"] > 0 and unboxed > 0):
+        fail(f"{what} does not stress the cull: {census}, {pairs}, {unboxed} kept whole")
     counts = read_counts()
     if min(counts[k] for k in ("blend_forward", "blend_forward_fast", "blend_backward", "blend_count")) < 1:
         fail(f"a blend kernel did not count its launches: {counts}")
@@ -581,16 +730,17 @@ def time_blend_kernels(s: Smoke, b, grid) -> None:
         k_ms = s.event_ms(lambda: kernel(b.tile_starts, b.inst, grid))
         plain_ms = s.host_ms(lambda: blend.plain_blend(b.tile_starts, b.inst, grid, exact=exact))
         pairs = dict(zip(blend.WORK_KINDS, work.sum(dim=0).tolist()))
-        f32_s = sum(n * F32_PER_PAIR[k] for k, n in pairs.items()) / F32_INSTR_RATE
-        mufu_s = sum(n * MUFU_PER_PAIR[k] for k, n in pairs.items()) / MUFU_RATE
         n_bytes = b.inst.numel() * 4 + b.tile_starts.numel() * 4 + grid.num_tiles * 4 * blend.PIX * 4
+        ops_s, bytes_s, walk_s, parts = blend_bounds(pairs, F32_MIN_PER_PAIR, MUFU_MIN_PER_PAIR, F32_PER_PAIR,
+                                                     MUFU_PER_PAIR, n_bytes)
         bound_ms = s.row(name, "blend_forward.cu",
                          "lightgaussian_tpu/ops/rasterize/pallas_blend.py:" + ("166" if exact else "241"),
-                         err, k_ms, plain_ms, max(f32_s, mufu_s), n_bytes / PEAK_BYTES, None)
-        s.say(f"  {name}: max|d| {err:.3e}; {k_ms:.4f} ms/launch (CUDA events, {TIMING_REPS} launches), "
-              f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms (FP32 {1e3 * f32_s:.4f} ms, MUFU "
-              f"{1e3 * mufu_s:.4f} ms; pairs {pairs}, {b.inst.shape[0]} instances); no single PyTorch "
-              f"call computes a tile alpha blend, so library_ms is null")
+                         err, k_ms, plain_ms, ops_s, bytes_s, None, walk_s)
+        s.say(f"  {name}: max|d| {err:.3e}; {k_ms:.4f} ms/launch (CUDA events, {TIMING_REPS} launches, incl. the "
+              f"tile-ordering kernel), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({parts}; pairs {pairs}, "
+              f"{b.inst.shape[0]} instances); no single PyTorch call computes a tile alpha blend, so library_ms "
+              f"is null")
+    hold_cull(s, b, grid, "the serving scene's view 0 at 1920x1080")
 
 
 def time_counting_kernel(s: Smoke, b, grid, n: int) -> None:
@@ -602,17 +752,17 @@ def time_counting_kernel(s: Smoke, b, grid, n: int) -> None:
     k_ms = s.event_ms(lambda: blend.blend_forward_counting(*args))
     plain_ms = s.host_ms(lambda: blend.plain_blend_counting(*args))
     pairs = dict(zip(blend.WORK_KINDS, work.sum(dim=0).tolist()))
-    f32_s = sum(c * F32_PER_PAIR_COUNT[k] for k, c in pairs.items()) / F32_INSTR_RATE
-    mufu_s = sum(c * MUFU_PER_PAIR[k] for k, c in pairs.items()) / MUFU_RATE
     n_bytes = (b.inst.numel() * 4 + b.gid_sorted.numel() * 8 + b.tile_starts.numel() * 4
                + grid.num_tiles * 4 * blend.PIX * 4 + n * 8)
+    ops_s, bytes_s, walk_s, parts = blend_bounds(pairs, F32_MIN_PER_PAIR_COUNT, MUFU_MIN_PER_PAIR, F32_PER_PAIR_COUNT,
+                                                 MUFU_PER_PAIR, n_bytes)
     bound = s.row("blend_count", "blend_count.cu", "lightgaussian_tpu/ops/rasterize/pallas_blend.py:360",
-                  err, k_ms, plain_ms, max(f32_s, mufu_s), n_bytes / PEAK_BYTES, None)
+                  err, k_ms, plain_ms, ops_s, bytes_s, None, walk_s)
     s.rows["blend_count"].update(importance_max_abs_err=d_imp, count_diff_ratio=ratio)
     s.say(f"  blend_count: {k_ms:.4f} ms/launch (CUDA events, {TIMING_REPS} launches, incl. zeroing the two "
           f"[{n}] outputs), plain {plain_ms:.3f} ms (plain walk + two index_add_), bound {bound:.4f} ms "
-          f"(FP32 {1e3 * f32_s:.4f} ms, MUFU {1e3 * mufu_s:.4f} ms, bytes {1e3 * n_bytes / PEAK_BYTES:.4f} ms; "
-          f"pairs {pairs}, {b.inst.shape[0]} instances); no single PyTorch call computes it, library_ms null")
+          f"({parts}; pairs {pairs}, {b.inst.shape[0]} instances); no single PyTorch call computes it, "
+          f"library_ms null")
 
 
 def time_tools(s: Smoke) -> None:
@@ -824,17 +974,17 @@ def time_training_kernels(s: Smoke, state, cam, bg, errors: dict) -> None:
     plain_ms = s.host_ms(lambda: blend.reduce_per_gaussian(
         blend.plain_blend_backward(b.tile_starts, b.inst, tile_g, tile_r, grid)[0], b.gid_sorted, n))
     pairs = dict(zip(blend.WORK_KINDS, work.sum(dim=0).tolist()))
-    f32_s = sum(c * F32_PER_PAIR_BWD[k] for k, c in pairs.items()) / F32_INSTR_RATE
-    mufu_s = sum(c * MUFU_PER_PAIR_BWD[k] for k, c in pairs.items()) / MUFU_RATE
     n_bytes = (b.inst.numel() * 4 + b.gid_sorted.numel() * 8 + b.tile_starts.numel() * 4
                + (tile_g.numel() + tile_r.numel()) * 4 + n * blend.FEAT_WIDTH * 4)
+    ops_s, bytes_s, walk_s, parts = blend_bounds(pairs, F32_MIN_PER_PAIR_BWD, MUFU_MIN_PER_PAIR_BWD, F32_PER_PAIR_BWD,
+                                                 MUFU_PER_PAIR_BWD, n_bytes)
     bound = s.row("blend_backward", "blend_backward.cu", "lightgaussian_tpu/ops/rasterize/pallas_blend.py:457",
-                  err_abs, k_ms, plain_ms, max(f32_s, mufu_s), n_bytes / PEAK_BYTES, None)
+                  err_abs, k_ms, plain_ms, ops_s, bytes_s, None, walk_s)
     s.rows["blend_backward"]["max_err_normalised"] = err  # the number held against B2_TOL
     s.say(f"  blend_backward: {k_ms:.4f} ms/launch (CUDA events, {TIMING_REPS} launches, incl. zeroing the "
-          f"[{n}, 9] output), plain {plain_ms:.3f} ms (plain walk + index_add_), bound {bound:.4f} ms "
-          f"(FP32 {1e3 * f32_s:.4f} ms, MUFU {1e3 * mufu_s:.4f} ms, bytes {1e3 * n_bytes / PEAK_BYTES:.4f} ms; "
-          f"pairs {pairs}, {b.inst.shape[0]} instances); no single PyTorch call computes it, library_ms null")
+          f"[{n}, 9] output and the tile-ordering kernel), plain {plain_ms:.3f} ms (plain walk + index_add_), bound "
+          f"{bound:.4f} ms ({parts}; pairs {pairs}, {b.inst.shape[0]} instances); no single PyTorch call computes "
+          f"it, library_ms null")
 
     img = image.detach().contiguous()
     gt = cam.gt_image.contiguous()
@@ -1264,17 +1414,25 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     s = Smoke()
-    build_kernels(s)
-    blur_errors = phase2(s)
+
+    def timed(number: int, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(s, *args)
+        s.sync()
+        print(f"phase {number} took {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    timed(1, build_kernels)
+    blur_errors = timed(2, phase2)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        cli_counts = phase3(s, tmp)
+        cli_counts = timed(3, phase3, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    counts = phase4(s, blur_errors)
+    counts = timed(4, phase4, blur_errors)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        trainer_counts = phase5(s, tmp)
+        trainer_counts = timed(5, phase5, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # launches on each kernel's path: the render CLI (B6), the training steps (B1-B4), the eval render

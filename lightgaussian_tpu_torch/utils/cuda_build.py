@@ -2,10 +2,10 @@
 
 Each `csrc/*.cu` file has a plain C interface. It is compiled for sm_90a at
 first use into the package's git-ignored `build/` directory, one shared
-library per source and flag set, and loaded once per process. `build`
-compiles several sources at once, one nvcc process each. Every entry point
-returns the `cudaGetLastError()` of its launch; `check` raises on a non-zero
-one.
+library per state of the source and of the `csrc/*.cuh` headers it
+includes, and loaded once per process. `build` compiles several sources at
+once, one nvcc process each. Every entry point returns the
+`cudaGetLastError()` of its launch; `check` raises on a non-zero one.
 
 The flags keep each float operation rounded as the plain PyTorch versions
 round it: `--fmad=false` (no contraction into FMA) and accurate `expf`.
@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -43,9 +44,13 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    """Where the library of `source` is built (named by source and flags)."""
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    """Where the library of `source` is built (named by the source, the
+    headers beside it that it includes, and the flags)."""
+    text = source.read_bytes()
+    h = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(set(re.findall(rb'#include "(\w+\.cuh)"', text))):
+        h.update((source.parent / header.decode()).read_bytes())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:12]}.so"
 
 
 def build(*sources: Path) -> list[Path]:
