@@ -5,9 +5,9 @@ Usage: python3 chip_smoke.py        (from the repository root; needs one CUDA ca
 
 Phases, each of which exits non-zero on failure:
   1. The card (nvidia-smi name and power limit) and the kernels' build: the
-     six CUDA sources compiled at once, one nvcc each, with ptxas's
-     registers, spills and shared memory for every kernel (the forward and
-     backward blends, their tile-ordering kernel included).
+     five CUDA sources compiled at once, one nvcc each, with ptxas's
+     registers, spills and shared memory for every kernel (the forward,
+     counting and backward blends, their tile-ordering kernel included).
   2. Each kernel against its plain PyTorch version on the card:
      - the exact and render-only blends (B1, B6) on the 2048-Gaussian
        192x128 parity scene and on a scene whose tiles saturate (so the early
@@ -28,13 +28,17 @@ Phases, each of which exits non-zero on failure:
        varying order); and, since most gradients are far below the largest,
        the median over the Gaussians with a gradient of the difference
        divided by the Gaussian's own plain gradient, per feature, 1e-3;
-     - the SSIM blurs B3, B4 and B7 at (15,37,53), (3,64,96) and
-       (9,1080,1920): atol 1e-5;
+     - the SSIM blurs B3, B4 and B7 at the shapes of BLUR_SHAPES: the
+       step's (9,1080,1920) and the set-up's (6,1080,1920), and small ones at
+       the edges of B4's strips and runs (heights 1, 7, 15, 17; widths 1, 7,
+       127, 129, 260; B4 takes float4 rows where the width is a multiple of
+       4 and single floats elsewhere): atol 1e-5, and B4 bit for bit;
      - the SSIM value (atol 1e-6) and its gradient (1e-5 of its largest
        magnitude) on both paths, the kernels against the plain versions;
-     - the counting blend (B5) on the same two scenes: image and T at 2e-4,
-       importance at 1e-4 (the JAX suite's tolerance) + 1e-6 relative, hit
-       counts equal; and
+     - the counting blend (B5) on the same two scenes and the cull-stress
+       one: image and T at 2e-4 and bit for bit equal to the exact blend's
+       (B1's) on the same binning, importance at 1e-4 (the JAX suite's
+       tolerance) + 1e-6 relative, hit counts equal; and
        `count_render(method="tiled")` against `method="reference"` likewise;
      - the chunk transpose (B8) against `permute` bit for bit at (5, 16,
        128), (3, 40, 128) and (7680, 16, 128);
@@ -47,9 +51,9 @@ Phases, each of which exits non-zero on failure:
      the render-only kernel. Then the exact render path (`render()`'s
      default) over the same cameras. Launch counts are read around each path.
      The blend kernels, the counting blend included, are held against their
-     plain versions at these shapes and timed, and so is the render, split
-     at its stage marks; the device's cull is held against its plain twins
-     at this size too. At this size a pair that sits on a threshold may
+     plain versions at these shapes and timed (B5's image and T bit-equal to
+     B1's here too), and so is the render, split at its stage marks; the
+     device's cull is held against its plain twins at this size too. At this size a pair that sits on a threshold may
      flip between nvcc's expf and torch's exp, so the counting blend's hit
      counts are held by the sum of |difference| over the sum of counts
      (COUNT_RATIO_TOL), with the number of Gaussians that differ printed.
@@ -66,7 +70,7 @@ Phases, each of which exits non-zero on failure:
      its stage marks (CUDA events recorded by the step itself, see
      `lightgaussian_tpu_torch/utils/stage_marks.py`), and each training
      kernel is held against its plain version and timed at the step's
-     shapes.
+     shapes; B4 also at the set-up's six planes.
   5. The CLI trainer at full width: a Blender-format source at 1920x1080
      whose 8 train and 8 test views are exact renders of the serving scene,
      and a `points3d.ply` of its 300,000 means with seeded noise. Then
@@ -148,8 +152,9 @@ MUFU_PER_PAIR = {"culled": 0, "faint": 1, "past_stop": 1, "stopping": 1, "applie
 # the nine sums (3 adds, 3 multiply-adds, 3 colour multiply-adds: 15).
 F32_PER_PAIR_BWD = {"culled": 12, "faint": 21, "past_stop": 0, "stopping": 24, "applied": 61}
 MUFU_PER_PAIR_BWD = {"culled": 0, "faint": 1, "past_stop": 0, "stopping": 1, "applied": 2}
-# The counting blend, csrc/blend_count.cu: the exact forward's pairs; an
-# applied pair adds the weight sum's add, the w > 0 compare and the count.
+# The counting blend, the counting form of csrc/blend_forward.cu: the exact
+# forward's pairs; an applied pair adds the weight sum's add, the w > 0
+# compare and the count.
 F32_PER_PAIR_COUNT = {**F32_PER_PAIR, "applied": F32_PER_PAIR["applied"] + 3}
 # The least any design pays for the same outputs: only the pairs that
 # change one (applied and stopping; for the render-only blend also the
@@ -185,7 +190,13 @@ SMALL_SCENES = {
 }
 MIN_SMALL_INSTANCES = 2000
 CULL_STRESS = dict(n=1536, width=192, height=128, seed=5)
-BLUR_SHAPES = ((15, 37, 53), (3, 64, 96), (9, 1080, 1920))
+# B4 (csrc/ssim_blur.cu) gives a warp a strip of 128 columns and a run of at
+# least 16 rows (small shapes get 16): heights of one row, under the 11
+# taps, and a run +- 1; widths of one column, under a float4 of halo, a strip
+# +- 1 and not a multiple of 4 (single-float rows); then the step's backward
+# and the set-up's target statistics at full size.
+BLUR_SHAPES = ((15, 37, 53), (3, 64, 96), (2, 1, 64), (3, 7, 40), (4, 15, 129), (4, 17, 127), (3, 40, 1),
+               (3, 40, 7), (2, 33, 260), (6, 1080, 1920), (9, 1080, 1920))
 SSIM_SHAPE = (3, 128, 192)
 KERNEL_TOL = 2e-4
 B2_TOL = 1e-5  # normalised per feature; 4x the largest difference seen, a decade above atomics noise
@@ -345,11 +356,10 @@ def build_kernels(s: Smoke) -> None:
 
     t0 = time.perf_counter()
     libs = cuda_build.build(blend.FORWARD_SOURCE, blend.BACKWARD_SOURCE, losses.SOURCE,
-                            blend.COUNT_SOURCE, blend.UNCHUNK_SOURCE, issue_probe.SOURCE)
+                            blend.UNCHUNK_SOURCE, issue_probe.SOURCE)
     blend._forward_library()
     blend._backward_library()
     losses._library()
-    blend._count_library()
     blend._unchunk_library()
     issue_probe._library()
     s.say(f"phase 1 ok: built {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s")
@@ -510,13 +520,16 @@ def hold_cull(s: Smoke, b, grid, what) -> None:
 
 
 def hold_counting(s: Smoke, b, grid, n, what, full_size: bool):
-    """B5 against its plain version; returns (image error, importance
+    """B5 against its plain version, and its image and T against B1's on the
+    same binning (bit for bit: one walk); returns (image error, importance
     error, count ratio, work)."""
     from lightgaussian_tpu_torch.ops.rasterize import blend
 
     torch = s.torch
     rgb, t, imp, cnt = blend.blend_forward_counting(b.tile_starts, b.inst, b.gid_sorted, grid, n)
+    rgb1, t1 = blend.blend_forward(b.tile_starts, b.inst, grid)
     s.sync()
+    as_b1 = torch.equal(rgb, rgb1) and torch.equal(t, t1)
     w_rgb, w_t, w_imp, w_cnt, work = blend.plain_blend_counting(b.tile_starts, b.inst, b.gid_sorted, grid, n)
     if not all(torch.isfinite(x).all() for x in (rgb, t, imp)):
         fail(f"blend_count on {what}: non-finite output")
@@ -531,12 +544,15 @@ def hold_counting(s: Smoke, b, grid, n, what, full_size: bool):
     unseen = torch.ones(n, dtype=torch.bool, device=s.dev)
     unseen[b.gid_sorted] = False
     imp_scale = float(w_imp.max())
-    s.say(f"  {'blend_count':20s} vs plain on {what}: image and T max|d| = {err:.3e} (atol {KERNEL_TOL:.0e}); "
+    s.say(f"  {'blend_count':20s} vs plain on {what}: image and T max|d| = {err:.3e} (atol {KERNEL_TOL:.0e}), "
+          f"{'bit-equal' if as_b1 else 'NOT EQUAL'} to blend_forward's; "
           f"importance max|d| = {d_imp:.3e} of a largest {imp_scale:.3e}; hit counts: {differ} of {n} Gaussians "
           f"differ, sum|d| / sum = {ratio:.3e} of {int(w_cnt.long().sum())} hits; {int(unseen.sum())} Gaussians "
           f"in no tile")
     if err > KERNEL_TOL:
         fail(f"blend_count's image disagrees with its plain version on {what}")
+    if not as_b1:
+        fail(f"blend_count's image or T differs from blend_forward's on {what}")
     if full_size:
         if ratio > COUNT_RATIO_TOL or d_imp > IMP_REL_TOL_FULL * imp_scale:
             fail(f"blend_count's statistics disagree with the plain version on {what} "
@@ -649,6 +665,7 @@ def phase2(s: Smoke) -> dict:
     img_e, fin_e = tiled._compose(rgb_e, t_e, bg_small, grid, grid.width, grid.height)
     tile_g, tile_r = backward_seed(s, img_e, fin_e, grid, seed=len(SMALL_SCENES))
     _, _, work = hold_backward(s, b, grid, n, tile_g, tile_r, what)
+    hold_counting(s, b, grid, n, what, full_size=False)
     hold_cull(s, b, grid, what)
     census = blend.cull_census(b.tile_starts, b.inst, grid)
     whole = blend.plain_cull_rect(b.inst[:n], torch.zeros(1, device=s.dev), torch.zeros(1, device=s.dev))
@@ -684,8 +701,10 @@ def phase2(s: Smoke) -> dict:
                 fail(f"{name} at {shape}: shape {tuple(got.shape)} or non-finite output")
             err = float((got - want).abs().max())
             errors[name] = err  # at the largest shape, the last
-            s.say(f"  {name:20s} vs plain at {shape}: max|d| = {err:.3e} (atol {BLUR_TOL:.0e})")
-            if err > BLUR_TOL:
+            same = torch.equal(got, want)
+            s.say(f"  {name:20s} vs plain at {shape}: max|d| = {err:.3e} (atol {BLUR_TOL:.0e}"
+                  f"{', and bit for bit' if name == 'blur' else ''}){'; bit-equal' if same else ''}")
+            if err > BLUR_TOL or (name == "blur" and not same):
                 fail(f"{name} disagrees with its plain version at {shape}")
     counts = read_counts()
     if min(counts[k] for k in ("blur", "blur3", "blur5")) < 1:
@@ -756,13 +775,13 @@ def time_counting_kernel(s: Smoke, b, grid, n: int) -> None:
                + grid.num_tiles * 4 * blend.PIX * 4 + n * 8)
     ops_s, bytes_s, walk_s, parts = blend_bounds(pairs, F32_MIN_PER_PAIR_COUNT, MUFU_MIN_PER_PAIR, F32_PER_PAIR_COUNT,
                                                  MUFU_PER_PAIR, n_bytes)
-    bound = s.row("blend_count", "blend_count.cu", "lightgaussian_tpu/ops/rasterize/pallas_blend.py:360",
+    bound = s.row("blend_count", "blend_forward.cu", "lightgaussian_tpu/ops/rasterize/pallas_blend.py:360",
                   err, k_ms, plain_ms, ops_s, bytes_s, None, walk_s)
     s.rows["blend_count"].update(importance_max_abs_err=d_imp, count_diff_ratio=ratio)
     s.say(f"  blend_count: {k_ms:.4f} ms/launch (CUDA events, {TIMING_REPS} launches, incl. zeroing the two "
-          f"[{n}] outputs), plain {plain_ms:.3f} ms (plain walk + two index_add_), bound {bound:.4f} ms "
-          f"({parts}; pairs {pairs}, {b.inst.shape[0]} instances); no single PyTorch call computes it, "
-          f"library_ms null")
+          f"[{n}] outputs and the tile-ordering kernel), plain {plain_ms:.3f} ms (plain walk + two index_add_), "
+          f"bound {bound:.4f} ms ({parts}; pairs {pairs}, {b.inst.shape[0]} instances); no single PyTorch call "
+          f"computes it, library_ms null")
 
 
 def time_tools(s: Smoke) -> None:
@@ -1025,6 +1044,16 @@ def time_training_kernels(s: Smoke, state, cam, bg, errors: dict) -> None:
               f"(CUDA events), plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({n_bytes / 1e6:.1f} MB; "
               f"operations {1e3 * ops_s:.4f} ms), library "
               f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}; {note}")
+
+    # B4's other call on the trainer's path: a camera's target statistics at set-up, B(y) and B(y^2)
+    y6 = torch.cat([gt, gt * gt])
+    if not torch.equal(losses.blur(y6), losses.plain_blur(y6)):
+        fail("blur differs from its plain version on the set-up's six planes")
+    k6_ms = s.event_ms(lambda: losses.blur(y6))
+    bound6_ms = 1e3 * max(12 * plane / PEAK_BYTES, 6 * HEIGHT * WIDTH * F32_PER_BLUR_OUTPUT / F32_INSTR_RATE)
+    s.rows["blur"].update(ms_6_planes=k6_ms, bound_ms_6_planes=bound6_ms)
+    s.say(f"  blur [6 planes in, 6 out: precompute_ssim_target_stats of a camera]: bit-equal to plain; {k6_ms:.4f} "
+          f"ms/launch (CUDA events), bound {bound6_ms:.4f} ms ({12 * plane / 1e6:.1f} MB)")
 
 
 def phase4(s: Smoke, blur_errors: dict) -> dict:

@@ -9,7 +9,12 @@
 //   lg_blend_forward_fast  replaces the Pallas `_fast_kernel` (same file,
 //                          `blend_forward_fast`): writes the naive
 //                          transmittance, the render-only contract.
-// Both are one template body, so each keeps its own launch counter.
+//   lg_blend_count         replaces the Pallas `_count_kernel` (same file,
+//                          `blend_forward_counting`) together with the
+//                          gather and segmented sum that follow it in the
+//                          JAX package's `tiled.blend_tiled_counting`: the
+//                          exact blend, plus per-Gaussian statistics.
+// The three are one template body, so each keeps its own launch counter.
 //
 // Semantics (the JAX package's masked-prefix form, reference.py): for each
 // pixel, instances are walked in (tile, depth) order. alpha =
@@ -52,6 +57,23 @@
 //     longest start first and short ones fill the last wave.
 // Nothing but the instances and the outputs touches device memory.
 //
+// Counting (lg_blend_count, COUNT): the exact blend's walk, so its image and
+// T are B1's by construction. Besides, every instance has a weight w = alpha
+// * T on each pixel it is applied to and 0 elsewhere; the kernel adds, per
+// Gaussian, the sum of w over all its instances and pixels to `imp` (float)
+// and the number of pixels with w > 0 to `cnt` (int), both zeroed by the
+// caller, so a Gaussian in no tile keeps exact zeros. The cull drops only
+// pairs with alpha < 1/255, which have w = 0 and no hit, and instances past
+// the early exit are applied nowhere (T only falls), so the zeros they keep
+// are their statistics. A lane sums its own pixels' w and hits; only a warp
+// that walked the instance and applied it somewhere reduces them (a 5-step
+// shuffle butterfly for the float, the integer reduce instruction for the
+// count) and adds them with shared-memory atomics to the instance's slot;
+// after the chunk, thread j adds a slot that has a hit to its Gaussian with
+// one atomicAdd per output and zeroes it. Warps and blocks run in any order,
+// so a Gaussian's float sum is taken in an order that changes from run to
+// run; the counts are exact in any order.
+//
 // lg_instance_cull is no blend: it writes, for every instance of the buffer,
 // the cells and the level that stage_chunk gives it in its tile, so that the
 // device's cull can be held against its plain twins
@@ -65,16 +87,24 @@ namespace {
 
 using namespace lg;
 
-template <bool EXACT>
+// COUNT (with EXACT): also the per-Gaussian weight sums and hit counts.
+template <bool EXACT, bool COUNT>
 __global__ void __launch_bounds__(kThreads)
 blend_tile_kernel(const int* __restrict__ tile_starts,
                   const int* __restrict__ tile_order,  // [T] block -> tile
                   const float* __restrict__ inst,
+                  const long long* __restrict__ gid,  // [M] instance -> Gaussian (COUNT)
                   float* __restrict__ rgb_out,  // [T, 3, kPix]
                   float* __restrict__ t_out,    // [T, 1, kPix]
+                  float* __restrict__ imp,      // [N], zeroed (COUNT)
+                  int* __restrict__ cnt,        // [N], zeroed (COUNT)
                   int tiles_x, int width, int height) {
+  static_assert(EXACT || !COUNT, "the counts are the exact blend's");
   __shared__ float4 rec[kBatch * kRecVecs];
   __shared__ unsigned cells[kBatch];
+  // COUNT: the chunk's weight sums and hit counts an instance, zero between chunks
+  __shared__ float w_acc[COUNT ? kBatch : 1];
+  __shared__ int n_acc[COUNT ? kBatch : 1];
 
   const int tile = tile_order[blockIdx.x];
   const int start = tile_starts[tile];
@@ -97,6 +127,10 @@ blend_tile_kernel(const int* __restrict__ tile_starts,
     live[k] = in_image[k];
     T[k] = 1.0f;
     cr[k] = cg[k] = cb_[k] = 0.0f;
+  }
+  if (COUNT && threadIdx.x < kBatch) {
+    w_acc[threadIdx.x] = 0.0f;
+    n_acc[threadIdx.x] = 0;
   }
 
   for (int base = start / kBatch * kBatch; base < end; base += kBatch) {
@@ -121,6 +155,8 @@ blend_tile_kernel(const int* __restrict__ tile_starts,
         todo &= todo - 1u;
         const unsigned reach = cells[j];
         const Instance f = read_instance(rec, j);
+        float w_sum = 0.0f;  // COUNT: this lane's weights and hits of instance j
+        int hits = 0;
 #pragma unroll
         for (int k = 0; k < kPixPerThread; ++k) {
           if (!(reach & bit[k])) continue;  // the whole warp
@@ -146,7 +182,33 @@ blend_tile_kernel(const int* __restrict__ tile_starts,
           cg[k] += w * f.g;
           cb_[k] += w * f.b;
           T[k] = test;
+          if (COUNT) {
+            w_sum += w;
+            hits += w > 0.0f ? 1 : 0;
+          }
         }
+        // only a warp that applied the instance somewhere reduces it
+        if (COUNT && __any_sync(kFullMask, hits > 0)) {
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) w_sum += __shfl_xor_sync(kFullMask, w_sum, off);
+          hits = __reduce_add_sync(kFullMask, hits);
+          if (lane == 0) {
+            atomicAdd(&w_acc[j], w_sum);
+            atomicAdd(&n_acc[j], hits);
+          }
+        }
+      }
+    }
+
+    if (COUNT) {  // one atomic per output for each instance with a hit
+      __syncthreads();
+      if (threadIdx.x < n && n_acc[threadIdx.x] > 0) {
+        const int j = threadIdx.x;
+        const long long gauss = gid[lo + j];
+        atomicAdd(imp + gauss, w_acc[j]);
+        atomicAdd(cnt + gauss, n_acc[j]);
+        w_acc[j] = 0.0f;
+        n_acc[j] = 0;
       }
     }
 
@@ -168,15 +230,16 @@ blend_tile_kernel(const int* __restrict__ tile_starts,
   }
 }
 
-template <bool EXACT>
-int launch(const void* tile_starts, void* tile_order, const void* inst, void* rgb, void* t,
-           int num_tiles, int tiles_x, int width, int height, void* stream) {
+template <bool EXACT, bool COUNT>
+int launch(const void* tile_starts, void* tile_order, const void* inst, const void* gid,
+           void* rgb, void* t, void* imp, void* cnt, int num_tiles, int tiles_x, int width,
+           int height, void* stream) {
   int* order = order_tiles(tile_starts, tile_order, num_tiles, stream);
-  blend_tile_kernel<EXACT><<<num_tiles, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(tile_starts), order,
-      static_cast<const float*>(inst), static_cast<float*>(rgb), static_cast<float*>(t),
-      tiles_x, width, height);
+  blend_tile_kernel<EXACT, COUNT><<<num_tiles, kThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(tile_starts), order, static_cast<const float*>(inst),
+      static_cast<const long long*>(gid), static_cast<float*>(rgb), static_cast<float*>(t),
+      static_cast<float*>(imp), static_cast<int*>(cnt), tiles_x, width, height);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -223,13 +286,21 @@ extern "C" int lg_instance_cull(const void* tile_starts, const void* inst, void*
 extern "C" int lg_blend_forward(const void* tile_starts, void* tile_order, const void* inst,
                                 void* rgb, void* t, int num_tiles, int tiles_x,
                                 int width, int height, void* stream) {
-  return launch<true>(tile_starts, tile_order, inst, rgb, t, num_tiles, tiles_x, width,
-                      height, stream);
+  return launch<true, false>(tile_starts, tile_order, inst, nullptr, rgb, t, nullptr, nullptr,
+                             num_tiles, tiles_x, width, height, stream);
 }
 
 extern "C" int lg_blend_forward_fast(const void* tile_starts, void* tile_order,
                                      const void* inst, void* rgb, void* t, int num_tiles,
                                      int tiles_x, int width, int height, void* stream) {
-  return launch<false>(tile_starts, tile_order, inst, rgb, t, num_tiles, tiles_x, width,
-                       height, stream);
+  return launch<false, false>(tile_starts, tile_order, inst, nullptr, rgb, t, nullptr, nullptr,
+                              num_tiles, tiles_x, width, height, stream);
+}
+
+extern "C" int lg_blend_count(const void* tile_starts, void* tile_order, const void* inst,
+                              const void* gid, void* rgb, void* t, void* imp, void* cnt,
+                              int num_tiles, int tiles_x, int width, int height,
+                              void* stream) {
+  return launch<true, true>(tile_starts, tile_order, inst, gid, rgb, t, imp, cnt, num_tiles,
+                            tiles_x, width, height, stream);
 }

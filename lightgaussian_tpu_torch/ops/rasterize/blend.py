@@ -4,13 +4,13 @@ the CUDA kernels, their plain versions, and their launch counters.
 Port of `blend_forward`, `blend_forward_fast`, `blend_backward`,
 `blend_forward_counting` and `unchunk_transpose` of
 `lightgaussian_tpu/ops/rasterize/pallas_blend.py`. The kernels live in
-`csrc/blend_forward.cu`, `csrc/blend_backward.cu`, `csrc/blend_count.cu`
-and `csrc/unchunk_transpose.cu`; those files say what bounds them and how
-they are laid out (`csrc/blend_tile.cuh` holds what the forward and the
-backward share). They are built with `nvcc` for
+`csrc/blend_forward.cu` (the exact, render-only and counting blends, one
+template), `csrc/blend_backward.cu` and `csrc/unchunk_transpose.cu`; those
+files say what bounds them and how they are laid out (`csrc/blend_tile.cuh`
+holds what the forward and the backward share). They are built with `nvcc` for
 sm_90a at first use (`utils/cuda_build.py`) and bound with `ctypes`.
 
-The forward and backward kernels skip, warp by warp, the instances whose
+The blend kernels skip, warp by warp, the instances whose
 alpha >= 1/255 level set cannot reach the warp's pixels, and spare the pairs
 under that level their exp. `plain_cull_rect` and `plain_cull_level` are the
 plain twins of the device functions that bound the set by a rectangle and
@@ -66,7 +66,6 @@ BATCH = 128  # instances per chunk, in the kernels and in their plain versions
 
 FORWARD_SOURCE = cuda_build.CSRC / "blend_forward.cu"
 BACKWARD_SOURCE = cuda_build.CSRC / "blend_backward.cu"
-COUNT_SOURCE = cuda_build.CSRC / "blend_count.cu"
 UNCHUNK_SOURCE = cuda_build.CSRC / "unchunk_transpose.cu"
 
 # Tiles the plain versions blend at once: about _TILE_GROUP * BATCH * PIX
@@ -93,7 +92,7 @@ _SYMBOLS = {
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FORWARD_ARGS = [_P] * 5 + [_I] * 4 + [_P]
 _BACKWARD_ARGS = [_P] * 7 + [_I] * 4 + [_P]
-_COUNT_ARGS = [_P] * 7 + [_I] * 4 + [_P]
+_COUNT_ARGS = [_P] * 8 + [_I] * 4 + [_P]
 _UNCHUNK_ARGS = [_P] * 2 + [_I] * 2 + [_P]
 _INSTANCE_CULL_ARGS = [_P] * 4 + [_I] * 3 + [_P]
 
@@ -106,16 +105,12 @@ def reset_launch_counts() -> None:
 def _forward_library() -> ctypes.CDLL:
     return cuda_build.load(FORWARD_SOURCE, {
         "lg_blend_forward": _FORWARD_ARGS, "lg_blend_forward_fast": _FORWARD_ARGS,
-        "lg_instance_cull": _INSTANCE_CULL_ARGS,
+        "lg_blend_count": _COUNT_ARGS, "lg_instance_cull": _INSTANCE_CULL_ARGS,
     })
 
 
 def _backward_library() -> ctypes.CDLL:
     return cuda_build.load(BACKWARD_SOURCE, {"lg_blend_backward": _BACKWARD_ARGS})
-
-
-def _count_library() -> ctypes.CDLL:
-    return cuda_build.load(COUNT_SOURCE, {"lg_blend_count": _COUNT_ARGS})
 
 
 def _unchunk_library() -> ctypes.CDLL:
@@ -137,8 +132,8 @@ def _check_inputs(tile_starts: torch.Tensor, inst: torch.Tensor, grid: TileGrid)
 
 
 def _order_scratch(grid: TileGrid, device: torch.device) -> torch.Tensor:
-    """int32 [T] for the forward and backward entry points to fill with the
-    tiles by falling range length: their blocks take tiles in that order."""
+    """int32 [T] for the blend entry points to fill with the tiles by
+    falling range length: their blocks take tiles in that order."""
     return torch.empty(grid.num_tiles, dtype=torch.int32, device=device)
 
 
@@ -268,10 +263,11 @@ def blend_forward_counting(
     t_out = torch.empty((t, 1, PIX), dtype=torch.float32, device=dev)
     imp = torch.zeros(num_gaussians, dtype=torch.float32, device=dev)
     cnt = torch.zeros(num_gaussians, dtype=torch.int32, device=dev)
-    fn = _count_library().lg_blend_count
+    order = _order_scratch(grid, dev)
+    fn = _forward_library().lg_blend_count
     with torch.cuda.device(dev):
         err = fn(
-            tile_starts.data_ptr(), inst.data_ptr(), gid_sorted.data_ptr(), rgb.data_ptr(),
+            tile_starts.data_ptr(), order.data_ptr(), inst.data_ptr(), gid_sorted.data_ptr(), rgb.data_ptr(),
             t_out.data_ptr(), imp.data_ptr(), cnt.data_ptr(), t, grid.tiles_x, grid.width,
             grid.height, cuda_build.stream_of(inst),
         )

@@ -49,7 +49,13 @@ def test_gaussian_taps_match_jax():
     assert abs(sum(tl.TAPS) - 1.0) < 1e-6
 
 
-@pytest.mark.parametrize("shape", [(15, 37, 53), (3, 64, 96), (1, 8, 8)])
+# The shapes of chip_smoke.py's BLUR_SHAPES below full size, where the card's
+# blur is held bit for bit to this plain version: the edges of its 128-column
+# strips and 16-row runs (heights 1, 7, 15, 17; widths 1, 7, 127, 129, 260).
+BLUR_EDGE_SHAPES = [(2, 1, 64), (3, 7, 40), (4, 15, 129), (4, 17, 127), (3, 40, 1), (3, 40, 7), (2, 33, 260)]
+
+
+@pytest.mark.parametrize("shape", [(15, 37, 53), (3, 64, 96), (1, 8, 8)] + BLUR_EDGE_SHAPES)
 def test_plain_blur_matches_jax(shape):
     x, _ = _pair(shape, 0)
     got = _np(tl.blur(torch.from_numpy(x)))
