@@ -18,14 +18,17 @@
 // row, then along each column, with zero "same" padding. Each pass sums its
 // taps in tap order starting from tap 0, the horizontal pass first, so with
 // --fmad=false the kernels round as the plain PyTorch version does, and
-// equal it bit for bit.
+// equal it bit for bit. A derived plane's values (x^2, y^2, x y) are one
+// float32 multiply each, rounded once, as the plain version's `x * x`.
 //
 // Bound on this card: bytes. An output element costs 11 multiplies and 10
-// adds per pass (42 float32 instructions) against 4 bytes written and at
-// most 8 read, and the FP32 pipes need about half as long for those as the
-// memory for the bytes: below the H100's ratio of float32 rate to memory
-// rate, but not by much, so a design that spends many instructions besides
-// the arithmetic of each output is held by issue, not by memory.
+// adds per pass (42 float32 instructions), and a derived plane one multiply
+// more for each element a lane forms, against 4 bytes written and, read
+// once, 4 bytes (lg_ssim_blur) or 8 / P (x and y for P planes). The FP32
+// pipes need about half as long for those as the memory for the bytes:
+// below the H100's ratio of float32 rate to memory rate, but not by much,
+// so a design that spends many instructions besides the arithmetic of each
+// output is held by issue, not by memory.
 //
 // lg_ssim_blur, row-streaming: a warp owns a strip of 128 columns of one
 // plane (four adjacent outputs a lane) over a run of rows. It streams the
@@ -43,15 +46,19 @@
 // but its own. Runs are as short as one wave of the card's resident warps
 // allows, and at least kMinRunRows: a run of R rows reads R + 10.
 //
-// lg_ssim_blur3 and lg_ssim_blur5: one block per 32x32 output tile of one
-// channel, 256 threads. The block loads the tile plus a 5-pixel halo of x
-// and y into shared memory, zero outside the image, forms each derived
-// plane (x^2, y^2, x y) there, runs the horizontal pass over the halo rows
-// into shared memory and the vertical pass from there to device memory.
-// Device memory sees each input element read about (42/32)^2 = 1.7 times,
-// mostly from L2, and each output written once. The Pallas tiling (64- or
-// 32-row blocks, 8- and 128-aligned slabs) was a TPU constraint and is not
-// kept.
+// lg_ssim_blur3 and lg_ssim_blur5, the same rows shared by the planes: a
+// block of P warps owns a strip of 128 columns of one channel over a run of
+// rows, one warp for each output plane. The block streams the run's rows of
+// x and y, and the 5 above and below, through one ring in shared memory, as
+// lg_ssim_blur streams one plane, so each input row is read once for all P
+// planes; a block barrier a row marks a staged row as in and the oldest as
+// read by every warp. Each warp forms its plane's values in registers from
+// the float4s it reads out of the ring: x or y itself, its square, or x
+// times y (a zero of the padding stays zero). Then it runs lg_ssim_blur's
+// two passes: horizontal sums into a ring of 11 rows in registers, the
+// vertical pass from there, four outputs a lane stored as one float4.
+// Runs are as many as fit in one wave of the resident blocks, so no block
+// waits for a second wave, and at least kMinRunRows long.
 
 #include <algorithm>
 #include <cstdint>
@@ -226,80 +233,154 @@ int launch_rows(const float* x, float* out, int channels, int height, int width,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- lg_ssim_blur3, lg_ssim_blur5: 32x32 tiles ----
+// ---- lg_ssim_blur3, lg_ssim_blur5: a block per channel, strip and run, a warp per plane ----
 
-constexpr int kTileW = 32;
-constexpr int kTileH = 32;
-constexpr int kInW = kTileW + 2 * kRadius;
-constexpr int kInH = kTileH + 2 * kRadius;
-constexpr int kThreads = 256;
+// Rows of x and of y a block's ring holds (all but one in flight while one is
+// read) and the blocks an SM its register budget asks for (P 3: 7, P 5: 4):
+// the fastest of those measured on the H100 for each P (PERF.md section 6).
+// More resident warps hide the barrier and each row's latency better than
+// more registers would.
+template <int P>
+constexpr int kMomentRing = P == 3 ? 8 : 4;
 
-// MODE 3: x-side moments. MODE 5: all five.
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-ssim_blur_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                 float* __restrict__ out, int height, int width, Taps taps) {
-  constexpr int kPlanes = MODE;
-  __shared__ float xs[kInH][kInW];
-  __shared__ float ys[kInH][kInW];
-  __shared__ float der[kInH][kInW];
-  __shared__ float hs[kInH][kTileW];
+// The planes: 0 x, 1 y, 2 x^2, 3 y^2, 4 x y; plane k of lg_ssim_blur3 is
+// kind 2 k (x, x^2, x y), of lg_ssim_blur5 kind k.
+template <bool VEC, int P>
+__global__ void __launch_bounds__(P * 32, P == 3 ? 7 : 4)
+moment_rows_kernel(const float* __restrict__ x, const float* __restrict__ y, float* __restrict__ out, int height,
+                   int width, int strips, int runs, int run_rows, Taps taps) {
+  constexpr int kSlots = kMomentRing<P>;
+  __shared__ __align__(16) float ring[2][kSlots][kRowFloats];  // x, then y
 
-  const int c = blockIdx.z;
-  const int gx0 = blockIdx.x * kTileW;
-  const int gy0 = blockIdx.y * kTileH;
+  const int lane = threadIdx.x & 31;
+  const int k = threadIdx.x >> 5;
+  const int strip = blockIdx.x % strips;
+  const int run = blockIdx.x / strips % runs;
+  const int channel = blockIdx.x / strips / runs;
+  const int kind = P == 3 ? 2 * k : k;
+  const int first = kind == 1 || kind == 3 ? 1 : 0;  // the ring of the plane's value, or of its first factor
+  const bool square = kind == 2 || kind == 3;
+  const bool product = kind == 4;
+  const int x0 = strip * kStripW;
+  const int y0 = run * run_rows;
+  const int rows_in = min(run_rows, height - y0) + 2 * kRadius;
   const size_t plane = static_cast<size_t>(height) * width;
-  const float* xc = x + c * plane;
-  const float* yc = y + c * plane;
+  const float* xc = x + channel * plane;
+  const float* yc = y + channel * plane;
+  float* dst = out + (static_cast<size_t>(channel) * P + k) * plane;
 
-  for (int i = threadIdx.x; i < kInH * kInW; i += kThreads) {
-    const int r = i / kInW, col = i % kInW;
-    const int gy = gy0 - kRadius + r, gx = gx0 - kRadius + col;
-    const bool in = gy >= 0 && gy < height && gx >= 0 && gx < width;
-    const size_t at = static_cast<size_t>(gy) * width + gx;
-    xs[r][col] = in ? xc[at] : 0.0f;
-    ys[r][col] = in ? yc[at] : 0.0f;
-  }
-  __syncthreads();
-
-#pragma unroll 1
-  for (int p = 0; p < kPlanes; ++p) {
-    // Which plane: 0 x, 1 y, 2 x^2, 3 y^2, 4 x y (MODE 3 takes 0, 2, 4).
-    const int kind = MODE == 3 ? 2 * p : p;
-    const float(*src)[kInW] = xs;
-    if (kind == 1) {
-      src = ys;
-    } else if (kind >= 2) {
-      for (int i = threadIdx.x; i < kInH * kInW; i += kThreads) {
-        const int r = i / kInW, col = i % kInW;
-        const float a = xs[r][col], b = ys[r][col];
-        der[r][col] = kind == 2 ? a * a : (kind == 3 ? b * b : a * b);
+  // Input row r of the run (image row y0 - kRadius + r) of x and of y into
+  // slot r % kSlots of their rings, staged columns x0 - kHalo .. x0 +
+  // kStripW + kHalo - 1, shared out over the block's threads. Every thread
+  // commits one group a row, empty past the run, so the wait below counts
+  // rows.
+  auto stage = [&](int r) {
+    if (r < rows_in) {
+      const int gy = y0 - kRadius + r;
+      const bool row_in = gy >= 0 && gy < height;
+      const size_t at = static_cast<size_t>(row_in ? gy : 0) * width;
+      constexpr int kUnits = VEC ? kRowVecs : kRowFloats;  // cp.async units of a row
+      for (int i = threadIdx.x; i < 2 * kUnits; i += P * 32) {
+        const bool of_y = i >= kUnits;
+        const int j = of_y ? i - kUnits : i;
+        const float* from = of_y ? yc : xc;
+        float* s = ring[of_y ? 1 : 0][r % kSlots];
+        const int gx = x0 - kHalo + (VEC ? 4 * j : j);
+        const bool in = row_in && gx >= 0 && gx < width;
+        if (VEC) {
+          cp_async16(s + 4 * j, in ? from + at + gx : from, in);
+        } else {
+          cp_async4(s + j, in ? from + at + gx : from, in);
+        }
       }
-      __syncthreads();
-      src = der;
     }
+    cp_async_commit();
+  };
 
-    for (int i = threadIdx.x; i < kInH * kTileW; i += kThreads) {
-      const int r = i / kTileW, col = i % kTileW;
-      float acc = taps.t[0] * src[r][col];
 #pragma unroll
-      for (int k = 1; k < kTaps; ++k) acc = acc + taps.t[k] * src[r][col + k];
-      hs[r][col] = acc;
-    }
-    __syncthreads();
+  for (int r = 0; r < kSlots - 1; ++r) stage(r);
 
-    float* o = out + (static_cast<size_t>(c) * kPlanes + p) * plane;
-    for (int i = threadIdx.x; i < kTileH * kTileW; i += kThreads) {
-      const int r = i / kTileW, col = i % kTileW;
-      const int gy = gy0 + r, gx = gx0 + col;
-      if (gy >= height || gx >= width) continue;
-      float acc = taps.t[0] * hs[r][col];
+  const int col = x0 + kCols * lane;  // the lane's first output column
+  float h[kTaps][kCols];              // horizontal sums of the last 11 rows; row r in slot r % 11
+  for (int r0 = 0; r0 < rows_in; r0 += kTaps) {
 #pragma unroll
-      for (int k = 1; k < kTaps; ++k) acc = acc + taps.t[k] * hs[r + k][col];
-      o[static_cast<size_t>(gy) * width + gx] = acc;
+    for (int s = 0; s < kTaps; ++s) {
+      const int r = r0 + s;
+      if (r >= rows_in) break;  // the same row for every warp of the block
+      cp_async_wait<kSlots - 2>();
+      __syncthreads();  // row r is in for the block, and every warp is done with row r - 1
+      stage(r + kSlots - 1);  // into the slot of row r - 1
+      // The plane's values at staged columns 4 lane .. 4 lane + 19, image
+      // columns col - 8 .. col + 11.
+      float v[4 * kLaneVecs];
+      const float4* q = reinterpret_cast<const float4*>(ring[first][r % kSlots]) + lane;
+      const float4* qy = reinterpret_cast<const float4*>(ring[1][r % kSlots]) + lane;
+#pragma unroll
+      for (int i = 0; i < kLaneVecs; ++i) {
+        float4 f = q[i];
+        if (square || product) {
+          const float4 g = product ? qy[i] : f;
+          f = make_float4(f.x * g.x, f.y * g.y, f.z * g.z, f.w * g.w);
+        }
+        v[4 * i] = f.x;
+        v[4 * i + 1] = f.y;
+        v[4 * i + 2] = f.z;
+        v[4 * i + 3] = f.w;
+      }
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {  // output column col + j: image columns col + j - 5 .. + 5
+        const float* u = v + (kHalo - kRadius) + j;
+        float acc = taps.t[0] * u[0];
+#pragma unroll
+        for (int t = 1; t < kTaps; ++t) acc = acc + taps.t[t] * u[t];
+        h[s][j] = acc;
+      }
+      if (r < 2 * kRadius) continue;
+      float o[kCols];  // image row y0 + r - 10 from rows r - 10 .. r, oldest first
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        float acc = taps.t[0] * h[(s + 1) % kTaps][j];
+#pragma unroll
+        for (int t = 1; t < kTaps; ++t) acc = acc + taps.t[t] * h[(s + 1 + t) % kTaps][j];
+        o[j] = acc;
+      }
+      float* d = dst + static_cast<size_t>(y0 + r - 2 * kRadius) * width + col;
+      if (VEC) {
+        if (col < width) *reinterpret_cast<float4*>(d) = make_float4(o[0], o[1], o[2], o[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kCols; ++j)
+          if (col + j < width) d[j] = o[j];
+      }
     }
-    __syncthreads();  // hs and der are written again for the next plane
   }
+}
+
+// Rows a run: as many runs as one wave of the card's resident blocks holds,
+// at least kMinRunRows each.
+template <bool VEC, int P>
+int moment_run_rows(int channels, int height, int strips) {
+  int device = 0, sms = 0, blocks = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, moment_rows_kernel<VEC, P>, P * 32, 0);
+  const long long per_run = static_cast<long long>(strips) * channels;  // blocks of one run
+  const long long runs = std::max<long long>(1, static_cast<long long>(sms) * blocks / per_run);
+  const long long rows = (height + runs - 1) / runs;
+  return static_cast<int>(std::min<long long>(height, std::max<long long>(kMinRunRows, rows)));
+}
+
+template <bool VEC, int P>
+int launch_moments(const float* x, const float* y, float* out, int channels, int height, int width, const Taps& t,
+                   cudaStream_t stream) {
+  const int strips = (width + kStripW - 1) / kStripW;
+  const int run_rows = moment_run_rows<VEC, P>(channels, height, strips);
+  const int runs = (height + run_rows - 1) / run_rows;
+  const long long blocks = static_cast<long long>(strips) * runs * channels;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  moment_rows_kernel<VEC, P><<<static_cast<int>(blocks), P * 32, 0, stream>>>(x, y, out, height, width, strips,
+                                                                             runs, run_rows, t);
+  return static_cast<int>(cudaGetLastError());
 }
 
 bool bad_shape(int channels, int height, int width, int ntaps) {
@@ -312,18 +393,19 @@ Taps copy_taps(const float* taps) {
   return t;
 }
 
-template <int MODE>
-int launch(const void* x, const void* y, void* out, int channels, int height,
-           int width, const float* taps, int ntaps, void* stream) {
-  if (bad_shape(channels, height, width, ntaps) || channels > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH,
-                  channels);
-  ssim_blur_kernel<MODE><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<float*>(out), height, width, copy_taps(taps));
-  return static_cast<int>(cudaGetLastError());
+template <int P>
+int launch(const void* x, const void* y, void* out, int channels, int height, int width, const float* taps,
+           int ntaps, void* stream) {
+  if (bad_shape(channels, height, width, ntaps)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const bool vec = width % 4 == 0 && aligned(x) && aligned(y) && aligned(out);
+  const auto* xs = static_cast<const float*>(x);
+  const auto* ys = static_cast<const float*>(y);
+  auto* o = static_cast<float*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const Taps t = copy_taps(taps);
+  return vec ? launch_moments<true, P>(xs, ys, o, channels, height, width, t, s)
+             : launch_moments<false, P>(xs, ys, o, channels, height, width, t, s);
 }
 
 }  // namespace

@@ -64,7 +64,7 @@ def test_plain_blur_matches_jax(shape):
         got, np.asarray(jl._blur_pallas_raw(jnp.asarray(x), 11, 1.5, interpret=True)), atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("shape", [(3, 41, 67), (1, 8, 8)])
+@pytest.mark.parametrize("shape", [(3, 41, 67), (1, 8, 8)] + BLUR_EDGE_SHAPES)
 def test_moment_planes_match_jax_kernels(shape):
     x, y = _pair(shape, 1)
     tx, ty, jx, jy = torch.from_numpy(x), torch.from_numpy(y), jnp.asarray(x), jnp.asarray(y)
@@ -72,6 +72,20 @@ def test_moment_planes_match_jax_kernels(shape):
                                atol=1e-6, rtol=0)
     np.testing.assert_allclose(_np(tl.blur5(tx, ty)), np.asarray(jl._blur5_pallas_raw(jx, jy, 11, 1.5, True)),
                                atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(3, 41, 67), (1, 8, 8)] + BLUR_EDGE_SHAPES)
+def test_moment_planes_are_the_blur_of_the_formed_planes(shape):
+    """The kernels form x^2, y^2 and x y in registers and blur them as B4
+    blurs a plane; on the card they are held to these planes bit for bit."""
+    x, y = _pair(shape, 9)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    for got, formed in ((tl.blur3(tx, ty), [tx, tx * tx, tx * ty]),
+                        (tl.blur5(tx, ty), [tx, ty, tx * tx, ty * ty, tx * ty])):
+        want = np.empty((shape[0] * len(formed), *shape[1:]), np.float32)
+        for k, plane in enumerate(formed):
+            want[k::len(formed)] = _np(tl.plain_blur(plane))  # plane k of channel c at c * P + k
+        np.testing.assert_array_equal(_np(got), want)
 
 
 @pytest.mark.parametrize("cached", [False, True])
