@@ -18,6 +18,9 @@ Phases, each of which exits non-zero on failure:
        Gaussian in every tile's range: sub-pixel Gaussians, Gaussians larger
        than a tile, opacities on both sides of 1/255, needles, means outside
        the image), at the same tolerances, with `blend.cull_census` of it;
+       and B1 and B6 once more on that binning with a fifth of its
+       Gaussians culled (radius 0) and their rows zeroed by
+       `binning.rebind_features`, as a cached trajectory binning holds them;
      - the device's cull itself (`blend.instance_cull`: the cells each
        instance may reach in its tile, and the level under which a pair is
        spared its exp) against its plain twins on those scenes: no cell the
@@ -30,7 +33,8 @@ Phases, each of which exits non-zero on failure:
        divided by the Gaussian's own plain gradient, per feature, 1e-3;
      - the SSIM blurs B3, B4 and B7 at the shapes of BLUR_SHAPES: the
        step's and the eval view's (3,1080,1920), the step's backward
-       (9,1080,1920) and the set-up's (6,1080,1920), and small ones at the
+       (9,1080,1920), the set-up's (6,1080,1920) and the distillation
+       step's backward (15,1080,1920), and small ones at the
        edges of the kernel's strips and runs (heights 1, 7, 15, 17; widths
        1, 7, 127, 129, 260; the kernel takes float4 rows where the width is
        a multiple of 4 and the pointers are aligned, single floats
@@ -89,6 +93,24 @@ Phases, each of which exits non-zero on failure:
      B7 one per evaluated view. The artifacts, the prune's share, the
      falling test L1 and the resumed state are checked; the trainer's wall
      time, its iterations per second and the cost of its parts are printed.
+  6. The GSS, distillation and trajectory CLIs at full width on phase 5's
+     model, each with its launch counts read around it:
+     `save_imp_score` on the resumed checkpoint (B5 8, B6 9 with
+     `--get_fps`; one finite score per alive PLY row; the live instances per
+     camera against the cut); `prune_finetune` 110 -> 140 with a 66% prune
+     at 115 and reports at 115 and 140 (B1 56, B2 30, B3 30, B4 38, B5 16,
+     B7 26; the kept share to the rounding, the test L1 falling after the
+     prune); `distill_train` SH 3 -> 2, 140 -> 170, from the finetuned
+     checkpoint raised to SH degree 3 with seeded coefficients (B1 86, B2
+     30, B7 56, B4 30 at 15 planes, B5 8; 24 `f_rest` fields, the frozen
+     fields bit-equal to the teacher's, the loss falling); the distillation
+     step beside the finetune step on the same state and views, in turns;
+     and `render_video` of an ellipse and of a circle of 48 frames each (B6
+     48 a call, one more for each fresh frame rendered again under a raised
+     cut), the circle's radius the largest of CIRCLE_RADII whose drift plan
+     reuses half its frames. Every reused frame is held against its fresh
+     render (above 45 dB), and fresh and cached frames are split at their
+     stage marks.
 Each phase ends with its own seconds. Then a `{"kernels": [...]}` line of the
 nine kernels, the card line, and the final `{"ok": true, "device": {...}}`
 line.
@@ -194,14 +216,16 @@ SMALL_SCENES = {
 }
 MIN_SMALL_INSTANCES = 2000
 CULL_STRESS = dict(n=1536, width=192, height=128, seed=5)
+ZEROED_SHARE = 0.2  # of the cull-stress Gaussians, culled for the rebound-binning case
 # The blur kernel (csrc/ssim_blur.cu, B3, B4 and B7) gives a warp a strip of
 # 128 columns and a run of at least 16 rows (small shapes get 16): heights of
 # one row, under the 11 taps, and a run +- 1; widths of one column, under a
 # float4 of halo, a strip +- 1 and not a multiple of 4 (single-float rows);
 # then at full size the step's images (B3) and the eval view's (B7), the
-# step's backward and the set-up's target statistics (B4).
+# step's backward, the set-up's target statistics and the distillation
+# step's backward over the five moments of three channels (B4).
 BLUR_SHAPES = ((15, 37, 53), (3, 64, 96), (2, 1, 64), (3, 7, 40), (4, 15, 129), (4, 17, 127), (3, 40, 1),
-               (3, 40, 7), (2, 33, 260), (3, 1080, 1920), (6, 1080, 1920), (9, 1080, 1920))
+               (3, 40, 7), (2, 33, 260), (3, 1080, 1920), (6, 1080, 1920), (9, 1080, 1920), (15, 1080, 1920))
 # The single-float path at a width that is a multiple of 4: the inputs lie one
 # float past an aligned address.
 BLUR_UNALIGNED_SHAPE = (3, 40, 64)
@@ -253,6 +277,18 @@ N_TEST_VIEWS = 8
 REPORT_TRAIN_VIEWS = 5  # the loop's train sample of a report
 POINT_NOISE_SD = 0.01
 HOT_SHARE = 0.2  # the share of the point-cloud start's Gaussians above --densify_grad_threshold
+# Phase 6, on phase 5's model: the finetune (its flags are built from these), the distillation, the trajectories.
+FT_TO, FT_PRUNE_AT, FT_PRUNE_PERCENT = 140, 115, 0.66
+FT_TEST_AT = (115, 140)
+DISTILL_TO, DISTILL_SH = 170, 2
+DISTILL_TEST_AT = (141, 170)
+TEACHER_SH_SD = 0.3
+VIDEO_FRAMES = 48
+CIRCLE_RADII = (0.02, 0.01, 0.005, 0.003, 0.002, 0.001)  # the largest that reuses half the frames is taken
+REUSED_PSNR_MIN = 45.0  # dB, the JAX suite's gate (tests/test_temporal_binning.py)
+STEP_RATIO_STEPS = 8
+TRAJECTORY_STAGES = {"fresh": ("preprocess", "binning", "B6", "compose"),
+                     "cached": ("preprocess", "rebind", "B6", "compose")}
 
 
 def fail(msg: str) -> None:
@@ -416,10 +452,10 @@ def cull_stress_scene(s: Smoke):
     opacities from under 1/255 up, a fifth mid-sized with opacities within a
     factor of two of 1/255, a fifth needles (15 to 80 pixels by 0.55 to 0.9),
     a tenth centred up to 60 pixels outside the image, and a few opaque blobs
-    crowd one corner so that pixels there saturate."""
-    from types import SimpleNamespace
-
+    crowd one corner so that pixels there saturate. Returns the binning, its
+    grid, the Gaussian count and the splats it was made from."""
     from lightgaussian_tpu_torch.ops.rasterize import binning
+    from lightgaussian_tpu_torch.ops.rasterize.projection import Splats
 
     torch = s.torch
     n, w, h = CULL_STRESS["n"], CULL_STRESS["width"], CULL_STRESS["height"]
@@ -445,13 +481,17 @@ def cull_stress_scene(s: Smoke):
     order = rng.permutation(n)
     grid = binning.make_grid(w, h)
     t = grid.num_tiles
-    b = SimpleNamespace(
+    b = binning.Binning(
         inst=torch.from_numpy(feats[order]).to(s.dev).repeat(t, 1).contiguous(),
         tile_starts=(torch.arange(t + 1, dtype=torch.int32) * n).to(s.dev),
-        gid_sorted=torch.from_numpy(order).to(s.dev).repeat(t).contiguous(),
         total=t * n,
+        gid_sorted=torch.from_numpy(order).to(s.dev).repeat(t).contiguous(),
+        num_gaussians=n,
     )
-    return b, grid, n
+    f = torch.from_numpy(feats).to(s.dev)
+    splats = Splats(mean2d=f[:, 0:2], conic=f[:, 2:5], color=f[:, 5:8], opacity=f[:, 8],
+                    depth=torch.ones(n, device=s.dev), radius=torch.ones(n, dtype=torch.int32, device=s.dev))
+    return b, grid, n, splats
 
 
 def backward_seed(s: Smoke, image, final_t, grid, seed: int):
@@ -665,7 +705,7 @@ def phase2(s: Smoke) -> dict:
               f"importance max|d| = {d_imp:.3e} (atol {IMP_TOL:.0e} + rtol {IMP_RTOL:.0e}), {differ} hit counts differ")
         if d_img > KERNEL_TOL or imp_over > IMP_TOL or differ:
             fail(f"count_render's tiled path disagrees with the oracle on {what}")
-    b, grid, n = cull_stress_scene(s)
+    b, grid, n, splats = cull_stress_scene(s)
     what = f"cull-stress scene {grid.width}x{grid.height}"
     _, (rgb_e, t_e) = hold("blend_forward", b, grid, what)
     hold("blend_forward_fast", b, grid, what)
@@ -684,6 +724,18 @@ def phase2(s: Smoke) -> dict:
     if not (0 < census["cell_applied"] <= census["cell_reached"] < 0.5 * 4 * census["warp_walked"]
             and pairs["applied"] > 0 and pairs["stopping"] > 0 and unboxed > 0):
         fail(f"{what} does not stress the cull: {census}, {pairs}, {unboxed} kept whole")
+    # A cached binning's rows of Gaussians culled since its keyframe come in all zero (opacity 0, so
+    # cull_level is -inf and every pair of the row is faint): a fifth of the cull-stress Gaussians, culled by
+    # their radius, through rebind_features.
+    gone = torch.from_numpy(np.random.default_rng(CULL_STRESS["seed"] + 1).random(n) < ZEROED_SHARE).to(s.dev)
+    bz = binning.rebind_features(dataclasses.replace(splats, radius=torch.where(gone, 0, splats.radius)), b)
+    zero_rows = gone[bz.gid_sorted]
+    if not (bz.inst[zero_rows] == 0).all() or not torch.equal(bz.inst[~zero_rows], b.inst[~zero_rows]):
+        fail("rebind_features did not zero exactly the culled Gaussians' rows")
+    what_z = f"{what} with {int(gone.sum())} of its {n} Gaussians' rows zeroed"
+    hold("blend_forward", bz, grid, what_z)
+    hold("blend_forward_fast", bz, grid, what_z)
+    hold_cull(s, bz, grid, what_z)
     counts = read_counts()
     if min(counts[k] for k in ("blend_forward", "blend_forward_fast", "blend_backward", "blend_count")) < 1:
         fail(f"a blend kernel did not count its launches: {counts}")
@@ -1072,6 +1124,15 @@ def time_training_kernels(s: Smoke, state, cam, bg, errors: dict) -> None:
     s.rows["blur"].update(ms_6_planes=k6_ms, bound_ms_6_planes=bound6_ms)
     s.say(f"  blur [6 planes in, 6 out: precompute_ssim_target_stats of a camera]: bit-equal to plain; {k6_ms:.4f} "
           f"ms/launch (CUDA events), bound {bound6_ms:.4f} ms ({12 * plane / 1e6:.1f} MB)")
+    # and the distillation step's: the backward of the five moments of three channels, 15 planes
+    g15 = torch.randn((15, HEIGHT, WIDTH), device=s.dev, generator=torch.Generator(device=s.dev).manual_seed(4))
+    if not torch.equal(losses.blur(g15), losses.plain_blur(g15)):
+        fail("blur differs from its plain version on the distillation step's 15 planes")
+    k15_ms = s.event_ms(lambda: losses.blur(g15))
+    bound15_ms = 1e3 * max(30 * plane / PEAK_BYTES, 15 * HEIGHT * WIDTH * F32_PER_BLUR_OUTPUT / F32_INSTR_RATE)
+    s.rows["blur"].update(ms_15_planes=k15_ms, bound_ms_15_planes=bound15_ms)
+    s.say(f"  blur [15 planes in, 15 out: the distillation step's five-moment backward]: bit-equal to plain; "
+          f"{k15_ms:.4f} ms/launch (CUDA events), bound {bound15_ms:.4f} ms ({30 * plane / 1e6:.1f} MB)")
 
 
 def phase4(s: Smoke, blur_errors: dict) -> dict:
@@ -1449,6 +1510,243 @@ def phase5(s: Smoke, tmp: Path) -> dict:
     return counts
 
 
+def _launches_of(s: Smoke, what: str, counts: dict, want: dict) -> None:
+    want = {k: want.get(k, 0) for k in counts}
+    s.say(f"  {what}: launches {counts}")
+    if counts != want:
+        fail(f"{what} made launches {counts}, expected {want}")
+
+
+def phase6(s: Smoke, tmp: Path) -> dict:
+    """The GSS CLIs, the distillation CLI and the trajectory CLI at full
+    width on phase 5's model; returns each path's launch counts."""
+    import csv
+
+    from lightgaussian_tpu_torch.cli import distill_train, prune_finetune, render_video, save_imp_score
+    from lightgaussian_tpu_torch.config import OptimizationParams
+    from lightgaussian_tpu_torch.data.ply import load_gaussian_ply, read_ply
+    from lightgaussian_tpu_torch.data.scene import Scene
+    from lightgaussian_tpu_torch.ops import losses
+    from lightgaussian_tpu_torch.ops.rasterize import binning as bin_mod
+    from lightgaussian_tpu_torch.ops.rasterize import build_binning, default_max_instances, render
+    from lightgaussian_tpu_torch.render import sets as render_sets
+    from lightgaussian_tpu_torch.train import checkpoint, distill, loop
+    from lightgaussian_tpu_torch.train.state import init_train_state
+    from lightgaussian_tpu_torch.train.step import make_train_step
+    from lightgaussian_tpu_torch.utils import logging as lg_logging
+    from lightgaussian_tpu_torch.utils import stage_marks
+
+    torch = s.torch
+    dev = s.dev
+    src, model5 = tmp / "src5", tmp / "model5"
+    start = model5 / f"chkpnt{CLI_RESUME_TO}.npz"
+    common = ["-s", str(src), "--eval", "-r", "1", "--quiet", "--device", DEVICE]
+    n_report = len(FT_TEST_AT) * (N_TEST_VIEWS + min(REPORT_TRAIN_VIEWS, N_VIEWS))
+    paths = {}
+
+    # 6a: save_imp_score on the resumed checkpoint
+    reset_counts()
+    text, wall = _called(save_imp_score.main, [*common, "-m", str(tmp / "imp6"), "--start_checkpoint", str(start),
+                                               "--show_imp_score", "--get_fps"])
+    s.sync()
+    paths["save_imp_score"] = read_counts()
+    _launches_of(s, "save_imp_score CLI", paths["save_imp_score"],
+                 {"blend_count": N_VIEWS, "blend_forward_fast": N_VIEWS + 1})
+    scores = np.load(tmp / "imp6" / "imp_score.npz")["arr_0"]
+    ply110 = load_gaussian_ply(model5 / "point_cloud" / f"iteration_{CLI_RESUME_TO}" / "point_cloud.ply", device=dev)
+    if scores.shape != (ply110.num_alive(),) or not np.isfinite(scores).all() or scores.max() <= 0:
+        fail(f"save_imp_score wrote {scores.shape} scores for {ply110.num_alive()} PLY rows, or not finite and positive")
+    live = re.search(r"live instances per train camera \(cut (\d+)\): \[([\d, ]+)\]; (\d+) above the cut", text)
+    fps = re.search(r"render FPS over (\d+) train views: ([\d.]+)", text)
+    if not live or not fps or "imp_score over" not in text:
+        fail("save_imp_score printed no live counts, FPS or score percentiles")
+    s.say(f"  save_imp_score on chkpnt{CLI_RESUME_TO}.npz: {scores.shape[0]} finite scores, one per alive PLY row, "
+          f"in {wall:.2f} s wall; live instances per train camera [{live.group(2)}] against the cut "
+          f"{live.group(1)}: {live.group(3)} above it; render FPS (render(fast=True), 8 views between two "
+          f"synchronisations) {fps.group(2)}")
+
+    # 6b: prune 66% and finetune
+    out_b = tmp / "prune6"
+    reset_counts()
+    text, wall = _called(prune_finetune.main, [
+        *common, "-m", str(out_b), "--start_checkpoint", str(start), "--iterations", str(FT_TO),
+        "--prune_iterations", str(FT_PRUNE_AT), "--prune_percent", str(FT_PRUNE_PERCENT),
+        "--prune_type", "v_important_score", "--test_iterations", *map(str, FT_TEST_AT),
+        "--save_iterations", str(FT_TO), "--checkpoint_iterations", str(FT_TO)])
+    s.sync()
+    steps = FT_TO - CLI_RESUME_TO
+    paths["prune_finetune"] = read_counts()
+    _launches_of(s, "prune_finetune CLI", paths["prune_finetune"], {
+        "blend_forward": steps + n_report, "blend_backward": steps, "blur3": steps, "blur": steps + N_VIEWS,
+        "blend_count": 2 * N_VIEWS, "blur5": n_report})
+    before = ply110.num_alive()
+    pruned = load_gaussian_ply(out_b / "point_cloud" / f"iteration_{FT_TO}" / "point_cloud.ply", device=dev)
+    after = pruned.num_alive()
+    idx = int(np.float32(FT_PRUNE_PERCENT) * np.float32(before))
+    rows = [r for r in csv.DictReader(open(out_b / "metric.csv")) if r["set"] == "test"]
+    l1 = {int(r["iteration"]): float(r["l1_loss"]) for r in rows}
+    its = re.search(r"Training sections: (\d+) iterations in ([\d.]+) s \(([\d.]+) it/s\)", text)
+    s.say(f"  prune_finetune from chkpnt{CLI_RESUME_TO}.npz: {before} -> {after} alive at {FT_PRUNE_AT} (without "
+          f"ties {before - idx - 1}, {after / before:.4f} kept); test L1 {l1.get(FT_TEST_AT[0])} at "
+          f"{FT_TEST_AT[0]} (after the prune) -> {l1.get(FT_TEST_AT[1])} at {FT_TEST_AT[1]}; {wall:.2f} s wall; "
+          f"training sections {its.group(2) if its else '?'} s for {steps} iterations "
+          f"({its.group(3) if its else '?'} it/s)")
+    if not (1 - FT_PRUNE_PERCENT - 0.005) * before <= after <= before - idx - 1:
+        fail(f"the finetune's prune kept {after} of {before}, not {1 - FT_PRUNE_PERCENT:.0%} to the rounding")
+    if sorted(l1) != list(FT_TEST_AT) or not l1[FT_TEST_AT[1]] < l1[FT_TEST_AT[0]]:
+        fail(f"the finetune did not lower the test L1 after the prune: {l1}")
+
+    # 6c: distil SH 3 -> 2. The finetuned model is still at SH degree 0 (the trainer raises the degree every
+    # 1000 iterations; 140 reach none), so the teacher is its checkpoint with degree 3 and seeded coefficients.
+    ft_state, _, ft_extent = checkpoint.load_checkpoint(out_b / f"chkpnt{FT_TO}.npz", device=dev)
+    rest = np.random.default_rng(6).normal(0.0, TEACHER_SH_SD, tuple(ft_state.scene.sh_rest.shape))
+    rest = torch.where(ft_state.scene.alive[:, None, None], torch.from_numpy(rest.astype(np.float32)).to(dev), 0.0)
+    teacher_path = tmp / f"teacher{FT_TO}.npz"
+    checkpoint.save_checkpoint(teacher_path, dataclasses.replace(ft_state, scene=dataclasses.replace(
+        ft_state.scene, sh_rest=rest, active_sh_degree=3)), FT_TO, ft_extent)
+    del ft_state, rest
+    out_c = tmp / "distill6"
+    seen = []
+    scalar = lg_logging.MetricsLogger.scalar
+
+    def record(self, tag, value, step):  # the drained losses, as the CLI logs them
+        if tag == "distill/loss":
+            seen.append((step, value))
+        return scalar(self, tag, value, step)
+
+    lg_logging.MetricsLogger.scalar = record
+    reset_counts()
+    try:
+        text, wall = _called(distill_train.main, [
+            *common, "-m", str(out_c), "--start_checkpoint", str(teacher_path),
+            "--new_max_sh", str(DISTILL_SH), "--augmented_view", "--iterations_total", str(DISTILL_TO),
+            "--test_iterations", *map(str, DISTILL_TEST_AT), "--save_iterations", str(DISTILL_TO),
+            "--checkpoint_iterations", str(DISTILL_TO)])
+        s.sync()
+    finally:
+        lg_logging.MetricsLogger.scalar = scalar
+    steps = DISTILL_TO - FT_TO
+    paths["distill_train"] = read_counts()
+    _launches_of(s, "distill_train CLI", paths["distill_train"], {
+        "blend_forward": 2 * steps + n_report, "blend_backward": steps, "blur5": steps + n_report, "blur": steps,
+        "blend_count": N_VIEWS})
+    ply_c = out_c / "point_cloud" / f"iteration_{DISTILL_TO}" / "point_cloud.ply"
+    f_rest = [n for n in read_ply(ply_c)["vertex"].property_names if n.startswith("f_rest_")]
+    teacher, _, _ = checkpoint.load_checkpoint(teacher_path, device=dev)
+    student, it, _ = checkpoint.load_checkpoint(out_c / f"chkpnt{DISTILL_TO}.npz", device=dev)
+    frozen = all(torch.equal(getattr(student.scene, f), getattr(teacher.scene, f))
+                 for f in ("log_scales", "quats", "opacity_logits"))
+    moved = not torch.equal(student.scene.sh_dc, teacher.scene.sh_dc)
+    losses_seq = [v for _, v in sorted(seen)]
+    epoch = N_VIEWS  # one pass over the train cameras
+    first, last = statistics.fmean(losses_seq[:epoch]), statistics.fmean(losses_seq[2 * epoch:3 * epoch])
+    rows = [r for r in csv.DictReader(open(out_c / "metric.csv")) if r["set"] == "test"]
+    elapsed = float(rows[-1]["elapsed"]) if rows else float("nan")
+    s.say(f"  distill_train SH 3 -> {DISTILL_SH} from chkpnt{FT_TO}.npz at SH degree 3 (rest coefficients "
+          f"N(0, {TEACHER_SH_SD}), seeded): {len(f_rest)} f_rest fields; scaling, "
+          f"rotation and opacity {'bit-equal to' if frozen else 'DIFFER FROM'} the teacher's; drained loss first "
+          f"{losses_seq[0]:.6f} -> last {losses_seq[-1]:.6f}, mean over iterations {FT_TO + 1}-{FT_TO + epoch} "
+          f"{first:.6f} -> {FT_TO + 2 * epoch + 1}-{FT_TO + 3 * epoch} {last:.6f} (the same {epoch} cameras); test "
+          f"PSNR {[r['psnr'] for r in rows]}; {wall:.2f} s wall, training sections {elapsed:.2f} s for {steps} "
+          f"iterations ({steps / elapsed:.2f} it/s)")
+    if len(f_rest) != 3 * (DISTILL_SH + 1) ** 2 - 3 or not frozen or not moved or it != DISTILL_TO:
+        fail("the distilled model has the wrong SH width, moved a frozen field, or did not train")
+    if len(losses_seq) != steps or not (losses_seq[0] > losses_seq[-1] and first > last):
+        fail(f"the distillation loss did not fall: {losses_seq}")
+
+    # the distillation step beside the finetune step, on the same state and views, in turns
+    scene_c = Scene(str(src), str(out_c), eval_split=True, resolution=1, load_iteration=-1, shuffle=False,
+                    device=dev)
+    cams = scene_c.getTrainCameras()
+    bg = torch.zeros(3, device=dev)
+    max_inst = default_max_instances(teacher.scene)
+    d_step = distill.make_distill_step(OptimizationParams(), scene_c.cameras_extent, max_inst)
+    t_step = make_train_step(OptimizationParams(), scene_c.cameras_extent, max_inst, update_densify_stats=False)
+    t_cams = [c.with_gt_ssim_stats(losses.precompute_ssim_target_stats(c.gt_image)) for c in cams]
+    d_state, t_state = init_train_state(distill.init_student(teacher.scene, DISTILL_SH)), teacher
+    times = {"distill": [], "finetune": []}
+    for i in range(2 * STEP_RATIO_STEPS + 2):
+        s.sync()
+        t0 = time.perf_counter()
+        if i % 2:
+            d_state, _ = d_step(d_state, teacher.scene, cams[(i // 2) % N_VIEWS], bg)
+        else:
+            t_state, _ = t_step(t_state, t_cams[(i // 2) % N_VIEWS], bg)
+        s.sync()
+        if i >= 2:
+            times["distill" if i % 2 else "finetune"].append(1e3 * (time.perf_counter() - t0))
+    d_ms, t_ms = statistics.median(times["distill"]), statistics.median(times["finetune"])
+    s.say(f"  step times on the pruned model ({teacher.scene.num_alive()} alive), median of {STEP_RATIO_STEPS} each, "
+          f"in turns on the same views: distillation step {d_ms:.3f} ms, finetune step {t_ms:.3f} ms, ratio "
+          f"{d_ms / t_ms:.3f}")
+    del d_state, t_state, t_cams
+
+    # 6d: trajectories of the distilled model
+    scene = scene_c.gaussians
+    frames_circ = None
+    for radius in CIRCLE_RADII:
+        frames_circ = render_sets.trajectory_frames("circular", cams, VIDEO_FRAMES, radius)
+        plan = render_sets.plan_rebin_schedule(scene, frames_circ, 8, 1.5)
+        if VIDEO_FRAMES - sum(plan) >= VIDEO_FRAMES // 2:
+            break
+    else:
+        fail(f"no radius of {CIRCLE_RADII} lets half the circular frames reuse a binning")
+    frames_ell = render_sets.trajectory_frames("ellipse", cams, VIDEO_FRAMES, 0.0)
+    plan_ell = render_sets.plan_rebin_schedule(scene, frames_ell, 8, 1.5)
+    for flags, what in ((["--video"], "ellipse"), (["--circular", "--radius", str(radius)], "circular")):
+        reset_counts()
+        text, wall = _called(render_video.main, [*common, "-m", str(out_c), "--skip_train", "--skip_test", *flags,
+                                                 "--n_frames", str(VIDEO_FRAMES)])
+        s.sync()
+        # a fresh frame whose live count reaches the cut renders again under a raised cut (B6 once more), a
+        # keyframe bins again (no launch); each says so
+        grows = re.findall(r"\[\w+ frame (\d+)\] (\d+) live instances reach the cut (\d+); growing it to \d+ "
+                           r"and (rendering|binning)", text)
+        renders_again = sum(g[3] == "rendering" for g in grows)
+        paths[f"render_video {what}"] = read_counts()
+        _launches_of(s, f"render_video --{what}", paths[f"render_video {what}"],
+                     {"blend_forward_fast": VIDEO_FRAMES + renders_again})
+        pngs = sorted((out_c / render_sets.TRAJECTORY_DIRS[what] / f"ours_{DISTILL_TO}").glob("*.png"))
+        if len(pngs) != VIDEO_FRAMES:
+            fail(f"render_video --{what} wrote {len(pngs)} frames, not {VIDEO_FRAMES}")
+        s.say(f"  render_video --{what}: {VIDEO_FRAMES} PNGs in {wall:.2f} s wall incl. loading and PNG writes; "
+              f"{VIDEO_FRAMES} B6 launches and {renders_again} more for the frames rendered again under a raised "
+              f"cut (frame, live instances, cut, what ran again: {grows})")
+    s.say(f"  rebin plans (1 = bin fresh): ellipse {''.join(str(int(f)) for f in plan_ell)} "
+          f"({VIDEO_FRAMES - sum(plan_ell)} reused); circular radius {radius} "
+          f"{''.join(str(int(f)) for f in plan)} ({VIDEO_FRAMES - sum(plan)} reused)")
+
+    # the reused circular frames against fresh renders, and the two kinds of frame at their stage marks (no cut)
+    worst, marks, walls = float("inf"), {"fresh": [], "cached": []}, {"fresh": [], "cached": []}
+    binning, uncut = None, bin_mod.MAX_CAPACITY
+    for i, cam in enumerate(frames_circ):
+        if plan[i]:
+            binning = build_binning(scene, cam, max_instances=uncut)
+            kind, kw = "fresh", dict(max_instances=uncut)
+        else:
+            kind, kw = "cached", dict(cached_binning=binning)
+        s.sync()
+        t0 = time.perf_counter()
+        stage_marks.start()
+        img = render(scene, cam, bg, fast=True, **kw).render
+        s.sync()
+        walls[kind].append(1e3 * (time.perf_counter() - t0))
+        marks[kind].append(stage_marks.stop())
+        if kind == "cached":
+            fresh = render(scene, cam, bg, max_instances=uncut, fast=True).render
+            worst = min(worst, float(losses.psnr(img.clamp(0, 1), fresh.clamp(0, 1))))
+    s.say(f"  the {len(walls['cached'])} reused circular frames against fresh renders: worst PSNR {worst:.2f} dB "
+          f"(gate {REUSED_PSNR_MIN} dB)")
+    if not worst > REUSED_PSNR_MIN:
+        fail(f"a reused trajectory frame is {worst:.2f} dB from its fresh render")
+    for kind in ("fresh", "cached"):
+        s.say(f"  {kind} trajectory frame (render(fast=True){' over a keyframe binning' if kind == 'cached' else ''}): "
+              f"median {statistics.median(walls[kind]):.3f} ms over {len(walls[kind])} frames")
+        stage_split(s, marks[kind], TRAJECTORY_STAGES[kind], walls[kind], f"{kind} trajectory frame")
+    print("phase 6 ok", flush=True)
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -1480,14 +1778,19 @@ def main() -> int:
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         trainer_counts = timed(5, phase5, tmp)
+        cli_paths = timed(6, phase6, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # launches on each kernel's path: the render CLI (B6), the training steps (B1-B4), the eval render
-    # (B7), the trainer CLI (B5); B8 and the probe, on no product path, carry their own entry points'
+    # (B7), the trainer CLI (B5); B8 and the probe, on no product path, carry their own entry points'.
+    # Beside them, each kernel's launches on every path the run drove.
+    by_path = {"render_sets": cli_counts, "train step": counts["train"], "eval render": counts["eval"],
+               "train_densify_prune": trainer_counts, **cli_paths}
     for name, row in s.rows.items():
         if row["launches"] is None:
             row["launches"] = (cli_counts if name == "blend_forward_fast" else counts["eval"] if name == "blur5"
                                else trainer_counts if name == "blend_count" else counts["train"])[name]
+        row["launches_by_path"] = {path: c[name] for path, c in by_path.items() if c.get(name)}
     order = ("blend_forward", "blend_forward_fast", "blend_backward", "blur3", "blur", "blur5", "blend_count",
              "unchunk_transpose", "issue_probe")
     print(json.dumps({"kernels": [s.rows[k] for k in order]}))

@@ -184,7 +184,9 @@ class _Blur(torch.autograd.Function):
 class _Moments5(torch.autograd.Function):
     """(x, y) -> the five moment planes. Backward: for cotangents g_k of the
     planes, dx = B(g0) + 2x B(g2) + y B(g4), dy = B(g1) + 2y B(g3) + x B(g4)
-    (one 5C-plane blur, `losses.py:303-310` of the JAX package)."""
+    (one 5C-plane blur, `losses.py:303-310` of the JAX package). `dy` is
+    formed only where y needs a gradient (not for distillation's detached
+    teacher image)."""
 
     @staticmethod
     def forward(ctx, x, y):
@@ -196,7 +198,7 @@ class _Moments5(torch.autograd.Function):
         x, y = ctx.saved_tensors
         gb = blur(g.contiguous()).reshape(x.shape[0], 5, *x.shape[1:])
         dx = gb[:, 0] + 2.0 * x * gb[:, 2] + y * gb[:, 4]
-        dy = gb[:, 1] + 2.0 * y * gb[:, 3] + x * gb[:, 4]
+        dy = gb[:, 1] + 2.0 * y * gb[:, 3] + x * gb[:, 4] if ctx.needs_input_grad[1] else None
         return dx, dy
 
 

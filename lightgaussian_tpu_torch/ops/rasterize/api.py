@@ -10,7 +10,9 @@ default exact path is differentiable in the scene's parameters, `bg` and
 per-Gaussian `gaussians_count` and `important_score`, the inputs of the
 Global Significance Score; it has no backward.
 
-Cached binning (trajectory reuse) comes with a later slice.
+`build_binning(scene, camera)` bins a keyframe once, and `render(...,
+cached_binning=b)` renders a nearby camera over that order with fresh
+features (trajectory frames; forward only).
 """
 from __future__ import annotations
 
@@ -44,6 +46,24 @@ def default_max_instances(scene: GaussianScene) -> int:
     return estimate_max_instances(scene.capacity)
 
 
+def build_binning(
+    scene: GaussianScene,
+    camera: Camera,
+    scale_modifier: float = 1.0,
+    max_instances: Optional[int] = None,
+):
+    """The scene's binning for this camera, for reuse through
+    `render(..., cached_binning=...)` on the cameras near it."""
+    if max_instances is None:
+        max_instances = default_max_instances(scene)
+    with torch.no_grad():
+        splats = preprocess(scene, camera, scale_modifier=scale_modifier)
+    stage_marks.mark("preprocess")
+    b = tiled_mod.build_binning(splats, camera.width, camera.height, max_instances)
+    stage_marks.mark("binning")
+    return b
+
+
 def render(
     scene: GaussianScene,
     camera: Camera,
@@ -55,10 +75,15 @@ def render(
     max_instances: Optional[int] = None,
     method: str = "tiled",
     fast: bool = False,
+    cached_binning=None,
 ) -> RenderOutput:
     """`fast=True` selects the render-only kernel: `render`/`final_T` differ
     from the exact path only on early-stopped (saturated) pixels, by under
-    1e-2. Training and parity use the default exact path."""
+    1e-2. Training and parity use the default exact path.
+
+    `cached_binning` (from `build_binning`) renders over a keyframe's order,
+    forward only; it fixes the capacity, so `max_instances` must not be
+    given with it, and `num_instances` reports the keyframe's total."""
     splats = preprocess(
         scene,
         camera,
@@ -71,6 +96,15 @@ def render(
     if method == "reference":
         image, final_t = ref_mod.blend_reference(splats, camera.width, camera.height, bg)
         total = 0
+    elif method == "tiled" and cached_binning is not None:
+        if max_instances is not None:
+            raise ValueError(
+                "pass either max_instances or cached_binning, not both: the cached "
+                "binning fixes the capacity"
+            )
+        image, final_t, total = tiled_mod.blend_tiled_cached(
+            splats, bg, camera.width, camera.height, cached_binning, fast
+        )
     elif method == "tiled":
         if max_instances is None:
             max_instances = default_max_instances(scene)

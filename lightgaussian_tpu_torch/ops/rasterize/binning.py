@@ -207,6 +207,7 @@ class Binning:
     tile_starts: torch.Tensor  # [T+1] int32
     total: int  # live instances before any capacity cut
     gid_sorted: torch.Tensor  # [M] int64 sorted position -> Gaussian id
+    num_gaussians: int  # N of the splats it was built from
 
 
 def instance_capacity(max_instances: int) -> int:
@@ -255,6 +256,7 @@ def bin_splats(splats: Splats, grid: TileGrid, max_instances: int) -> Binning:
             tile_starts=torch.zeros(num_tiles + 1, dtype=torch.int32, device=dev),
             total=total,
             gid_sorted=torch.zeros(0, dtype=torch.int64, device=dev),
+            num_gaussians=n,
         )
 
     # Instance slot -> source Gaussian; slots past the capacity are cut.
@@ -288,7 +290,29 @@ def bin_splats(splats: Splats, grid: TileGrid, max_instances: int) -> Binning:
     ).to(torch.int32)
 
     inst = pack_features(splats)[gid_s].contiguous()
-    return Binning(inst=inst, tile_starts=tile_starts, total=total, gid_sorted=gid_s)
+    return Binning(inst=inst, tile_starts=tile_starts, total=total, gid_sorted=gid_s, num_gaussians=n)
+
+
+def rebind_features(splats: Splats, b: Binning) -> Binning:
+    """A cached binning with its instance features gathered anew from
+    `splats`, in the cached (tile | depth) order and tile ranges: the
+    trajectory renderer's reuse of a keyframe's sort over the frames near
+    it. A Gaussian culled in the new frame but still in the cached order
+    gets an all-zero row (opacity 0, so it blends nothing). `total` stays
+    the keyframe's. Forward only.
+
+    The zeroing is a `where`, not a product with the mask: a Gaussian
+    behind the camera may have non-finite screen coordinates, and NaN
+    times 0 is NaN."""
+    n = splats.mean2d.shape[0]
+    if n != b.num_gaussians:
+        raise ValueError(
+            f"cached binning was built for {b.num_gaussians} Gaussians, got {n}: "
+            "a larger scene would gather in range and mis-render"
+        )
+    visible = (splats.radius > 0)[:, None]
+    feat = torch.where(visible, pack_features(splats), 0.0)
+    return dataclasses.replace(b, inst=feat[b.gid_sorted].contiguous())
 
 
 def snug_capacity(live: int) -> int:

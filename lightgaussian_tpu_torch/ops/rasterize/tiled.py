@@ -1,13 +1,16 @@
 """Tiled blend: binning plus the blend kernels, assembled into an image.
 
 Port of `lightgaussian_tpu/ops/rasterize/tiled.py` (`blend_tiled`,
-`blend_tiled_fast`, `blend_tiled_counting`). `blend_tiled` is differentiable: a
+`blend_tiled_fast`, `blend_tiled_counting`, and the cached-binning pair
+`build_binning` and `blend_tiled_cached`). `blend_tiled` is differentiable: a
 `torch.autograd.Function` whose forward is the exact blend (B1) and whose
 backward runs the backward kernel (B2) over the forward's binning, with
 the per-pixel remaining-contribution seed of the JAX VJP (`tiled.py:66-122`
 there). The boundary sits after the (autograd-friendly) preprocess: inputs
 are screen-space splats. The render-only blend has no backward, as in the
-JAX package, and refuses inputs that require a gradient. The counting
+JAX package, and refuses inputs that require a gradient. So does the
+cached blend, which renders a frame over a binning made for a camera near
+it (trajectory frames). The counting
 blend runs without a graph; its kernel (B5) adds each instance's statistics
 to its Gaussian itself, so the JAX package's gather and segmented sum after
 the kernel have no counterpart.
@@ -122,6 +125,15 @@ def blend_tiled(
     return image, final_t, b.total
 
 
+def _refuse_gradients(splats: Splats, bg: torch.Tensor, what: str) -> None:
+    tensors = (splats.mean2d, splats.conic, splats.color, splats.opacity, bg)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"the {what} has no backward; render with fast=False and no cached "
+            "binning for gradients, or under torch.no_grad()"
+        )
+
+
 def blend_tiled_fast(
     splats: Splats,
     bg: torch.Tensor,
@@ -132,17 +144,43 @@ def blend_tiled_fast(
     """Render-only blend (kernel B6): the inference path. The image differs
     from `blend_tiled`'s only on saturated pixels, by under 1e-2. It has no
     backward, as in the JAX package: inputs that require a gradient raise."""
-    tensors = (splats.mean2d, splats.conic, splats.color, splats.opacity, bg)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the render-only blend has no backward; render with fast=False for "
-            "gradients, or under torch.no_grad()"
-        )
+    _refuse_gradients(splats, bg, "render-only blend")
     grid = make_grid(width, height)
     b = binning_mod.bin_splats(splats, grid, max_instances)
     stage_marks.mark("binning")
     tile_rgb, tile_t = blend_mod.blend_forward_fast(b.tile_starts, b.inst, grid)
     stage_marks.mark("B6")
+    image, final_t = _compose(tile_rgb, tile_t, bg, grid, width, height)
+    stage_marks.mark("compose")
+    return image, final_t, b.total
+
+
+@torch.no_grad()
+def build_binning(splats: Splats, width: int, height: int, max_instances: int) -> binning_mod.Binning:
+    """Bin splats for later reuse by `blend_tiled_cached`."""
+    return binning_mod.bin_splats(splats, make_grid(width, height), max_instances)
+
+
+def blend_tiled_cached(
+    splats: Splats,
+    bg: torch.Tensor,
+    width: int,
+    height: int,
+    cached: binning_mod.Binning,
+    fast: bool = False,
+):
+    """Blend over a cached binning's (tile | depth) order with the features
+    of `splats` gathered anew (`binning.rebind_features`): the sorts are
+    skipped. The render-only kernel (B6) when `fast`, else the exact one
+    (B1). Forward only: inputs that require a gradient raise. Returns
+    (image, final_T, the keyframe's total)."""
+    _refuse_gradients(splats, bg, "cached blend")
+    grid = make_grid(width, height)
+    b = binning_mod.rebind_features(splats, cached)
+    stage_marks.mark("rebind")
+    fwd = blend_mod.blend_forward_fast if fast else blend_mod.blend_forward
+    tile_rgb, tile_t = fwd(b.tile_starts, b.inst, grid)
+    stage_marks.mark("B6" if fast else "B1")
     image, final_t = _compose(tile_rgb, tile_t, bg, grid, width, height)
     stage_marks.mark("compose")
     return image, final_t, b.total

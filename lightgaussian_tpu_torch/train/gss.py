@@ -22,9 +22,16 @@ from lightgaussian_tpu_torch.models.gaussians import GaussianScene
 from lightgaussian_tpu_torch.ops.rasterize import count_render
 
 
-def accumulate_gss(scene: GaussianScene, cameras: Iterable[Camera], bg: torch.Tensor, max_instances: int):
+def accumulate_gss(
+    scene: GaussianScene,
+    cameras: Iterable[Camera],
+    bg: torch.Tensor,
+    max_instances: int,
+    live_counts: list | None = None,
+):
     """(hit count int32 [N], importance float32 [N]) summed over `cameras`,
-    one counting render each."""
+    one counting render each. Each camera's live instance count is appended
+    to `live_counts` where one is given."""
     dev = scene.means.device
     counts = torch.zeros(scene.capacity, dtype=torch.int32, device=dev)
     imp = torch.zeros(scene.capacity, dtype=torch.float32, device=dev)
@@ -32,15 +39,23 @@ def accumulate_gss(scene: GaussianScene, cameras: Iterable[Camera], bg: torch.Te
         out = count_render(scene, cam, bg, max_instances=max_instances)
         counts = counts + out.gaussians_count
         imp = imp + out.important_score
+        if live_counts is not None:
+            live_counts.append(out.num_instances)
     return counts, imp
 
 
-def accumulate_gss_auto(scene: GaussianScene, cameras: Iterable[Camera], bg: torch.Tensor, max_instances: int):
+def accumulate_gss_auto(
+    scene: GaussianScene,
+    cameras: Iterable[Camera],
+    bg: torch.Tensor,
+    max_instances: int,
+    live_counts: list | None = None,
+):
     """`accumulate_gss` for cameras as a training loop holds them: the
     cached SSIM planes, which a counting render never reads, are dropped.
     One device; the sweep sharded over several comes with the multi-device
     slice."""
-    return accumulate_gss(scene, [c.with_gt_ssim_stats(None) for c in cameras], bg, max_instances)
+    return accumulate_gss(scene, [c.with_gt_ssim_stats(None) for c in cameras], bg, max_instances, live_counts)
 
 
 def _f32_index(fraction: float, n_alive: torch.Tensor) -> torch.Tensor:

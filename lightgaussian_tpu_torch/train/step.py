@@ -66,7 +66,7 @@ def make_train_step(
                 "attach one with camera.with_gt(img)."
             )
         old = state.scene
-        params = {k: v.detach().requires_grad_(True) for k, v in old.params().items()}
+        params = param_leaves(old)
         offset = torch.zeros((state.capacity, 2), dtype=torch.float32, device=old.means.device,
                              requires_grad=True)
         out = render(old.with_params(params), camera, bg, mean2d_offset=offset,
@@ -75,21 +75,11 @@ def make_train_step(
         ssim_v = losses.ssim(out.render, gt, target_stats=camera.gt_ssim_stats)
         loss = (1.0 - opt_cfg.lambda_dssim) * l1 + opt_cfg.lambda_dssim * (1.0 - ssim_v)
         stage_marks.mark("loss forward")
-        names = list(params)
-        got = torch.autograd.grad(loss, [params[k] for k in names] + [offset], allow_unused=True)
+        grads, (offset_grad,) = gradients(loss, params, frozen_fields, (offset,))
         stage_marks.mark("preprocess backward")
-        # a parameter the loss does not reach (sh_rest at SH degree 0) has a zero gradient
-        grads = {k: torch.zeros_like(params[k]) if g is None else g for k, g in zip(names, got)}
-        offset_grad = torch.zeros_like(offset) if got[-1] is None else got[-1]
-        for f in frozen_fields:
-            grads[f] = torch.zeros_like(grads[f])
 
-        lr_mult = lr_mult_fn(state.step) if lr_mult_fn is not None else 1.0
         with torch.no_grad():
-            new_params, new_opt = optim.adam_update(
-                old.params(), grads, state.opt, lr_fns, state.step, old.alive, lr_mult
-            )
-            scene = old.with_params(new_params)
+            scene, new_opt = adam_step(state, grads, lr_fns, lr_mult_fn)
             stage_marks.mark("Adam")
             visible = out.visibility & scene.alive
             if update_densify_stats:
@@ -123,6 +113,34 @@ def make_train_step(
         return new_state, metrics
 
     return train_step
+
+
+def param_leaves(scene) -> dict[str, torch.Tensor]:
+    """The scene's parameters as fresh leaves that require a gradient."""
+    return {k: v.detach().requires_grad_(True) for k, v in scene.params().items()}
+
+
+def gradients(loss: torch.Tensor, params: dict, frozen_fields: tuple = (), extra: tuple = ()):
+    """(gradient of each parameter, gradients of `extra`) of `loss`. A
+    tensor the loss does not reach (sh_rest at SH degree 0) has a zero
+    gradient, and so has every field of `frozen_fields`."""
+    names = list(params)
+    leaves = [params[k] for k in names] + list(extra)
+    got = torch.autograd.grad(loss, leaves, allow_unused=True)
+    got = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, got)]
+    grads = dict(zip(names, got))
+    for f in frozen_fields:
+        grads[f] = torch.zeros_like(grads[f])
+    return grads, tuple(got[len(names):])
+
+
+def adam_step(state: TrainState, grads: dict, lr_fns: dict, lr_mult_fn=None):
+    """One Adam update of the state's scene: (new scene, new Adam state).
+    `lr_mult_fn(step)` scales every group's rate but the means'."""
+    lr_mult = lr_mult_fn(state.step) if lr_mult_fn is not None else 1.0
+    old = state.scene
+    new_params, new_opt = optim.adam_update(old.params(), grads, state.opt, lr_fns, state.step, old.alive, lr_mult)
+    return old.with_params(new_params), new_opt
 
 
 def make_eval_render(max_instances: int):

@@ -140,6 +140,29 @@ def test_cached_path_gives_the_target_no_gradient():
     np.testing.assert_array_equal(np.asarray(jgy), 0.0)
 
 
+def test_five_moment_backward_skips_dy_for_a_detached_target():
+    """Distillation's teacher image needs no gradient: the five-moment
+    backward then returns no dy, and its dx is bit-equal to the dx of a
+    backward that forms dy too; the JAX gradient holds it as before."""
+    x, y = _pair((3, 33, 48), 8)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    (dx_alone,) = torch.autograd.grad(tl.ssim(tx, torch.from_numpy(y)), [tx])
+    ty = torch.from_numpy(y).requires_grad_(True)
+    dx_both, dy = torch.autograd.grad(tl.ssim(tx, ty), [tx, ty])
+    assert torch.equal(dx_alone, dx_both) and dy.abs().max() > 0
+    want = jax.grad(lambda a: jl.ssim(a, jnp.asarray(y)))(jnp.asarray(x))
+    _close_normalised(_np(dx_alone), want, 1e-5)
+
+    class Ctx:
+        saved_tensors = (tx.detach(), ty.detach())
+        needs_input_grad = (True, False)
+
+    g = torch.from_numpy(np.random.default_rng(8).normal(size=(15, 33, 48)).astype(np.float32))
+    dx, none = tl._Moments5.backward(Ctx, g)
+    assert none is None and torch.equal(dx, tl._Moments5.backward(
+        type("Both", (Ctx,), {"needs_input_grad": (True, True)}), g)[0])
+
+
 def test_blur_vjp_is_the_blur():
     x, _ = _pair((3, 24, 40), 6)
     wgt = np.random.default_rng(6).normal(size=x.shape).astype(np.float32)
