@@ -111,6 +111,25 @@ Phases, each of which exits non-zero on failure:
      reuses half its frames. Every reused frame is held against its fresh
      render (above 45 dB), and fresh and cached frames are split at their
      stage marks.
+  7. The COLMAP source, VecTree and the evaluation at full width on phases
+     5 and 6, each path with its launch counts read around it: phase 5's 8
+     train views and 300,000-point cloud written as a COLMAP `sparse/0`
+     (binary PINHOLE cameras, images.bin, points3D.bin) with the port's
+     writers and read through `Scene` (cameras equal to the Blender
+     reading's, R and T within 1e-6, fov within 1e-7; the cached
+     points3D.ply the Blender source's byte for byte); the phase 5 model
+     served from both sources by `render_sets` (B6 8 each, PNGs within
+     1/255); `cli.vectree` with its defaults on the distilled model and its
+     imp_score.npz (no counted kernel; the keep count, the seven files, the
+     bundle loading back to the in-memory result, every VQ row a codebook
+     row, the SH error under a quarter of a random codebook's; the fit's
+     time split at its stage marks into draw, nearest-code search and EMA +
+     expire, the final assignment, peak memory, the bundle's size against
+     the PLY's); the bundle served as the next iteration with `render_sets
+     --load_vq` beside the raw model (B6 8 each); and `cli.metrics` over
+     both (B7 one a view, LPIPS finite and vgg-random, PSNR(VQ) above
+     PSNR(raw) - 1 dB), with a view's SSIM and LPIPS timed.
+     Phases 5 and 6 also hold their metric.csv's LPIPS finite and vgg-random.
 Each phase ends with its own seconds. Then a `{"kernels": [...]}` line of the
 nine kernels, the card line, and the final `{"ok": true, "device": {...}}`
 line.
@@ -289,6 +308,14 @@ REUSED_PSNR_MIN = 45.0  # dB, the JAX suite's gate (tests/test_temporal_binning.
 STEP_RATIO_STEPS = 8
 TRAJECTORY_STAGES = {"fresh": ("preprocess", "binning", "B6", "compose"),
                      "cached": ("preprocess", "rebind", "B6", "compose")}
+# Phase 7, on phases 5 and 6: the COLMAP source, VecTree (the vectree CLI's defaults: ratio 0.6,
+# codebook 8192, 1000 iterations, chunk 80,000, fp16 storage) and the evaluation.
+COLMAP_RT_TOL, COLMAP_FOV_TOL = 1e-6, 1e-7
+VQ_KEEP = 0.4  # 1 - the default --vq_ratio
+VQ_CODEBOOK, VQ_ITERATIONS = 8192, 1000  # the defaults of --codebook_size and --iteration_num
+VQ_RANDOM_SHARE = 0.25  # the VQ rows' SH error under this share of a random codebook's (the JAX suite's rule)
+VQ_PSNR_DROP = 1.0  # dB: PSNR(VQ) > PSNR(raw) - this (tests/test_cli.py)
+VQ_STAGES = ("draw", "nearest code", "EMA + expire")
 
 
 def fail(msg: str) -> None:
@@ -1441,12 +1468,17 @@ def phase5(s: Smoke, tmp: Path) -> dict:
     with np.load(ckpt_path) as z:
         if sorted(z.files) != want_keys:
             fail(f"checkpoint keys {sorted(z.files)}")
-    rows = [r for r in csv.DictReader(open(out / "metric.csv")) if r["set"] == "test"]
+    all_rows = list(csv.DictReader(open(out / "metric.csv")))
+    rows = [r for r in all_rows if r["set"] == "test"]
     if [int(r["iteration"]) for r in rows] != list(CLI_TEST_AT):
         fail(f"metric.csv test rows at {[r['iteration'] for r in rows]}")
+    lpips_col = [(float(r["lpips"]), r["lpips_kind"]) for r in all_rows]
+    if not all(math.isfinite(v) and kind == "vgg-random" for v, kind in lpips_col):
+        fail(f"metric.csv's LPIPS column is not finite and vgg-random: {lpips_col}")
     l1_first, l1_last, elapsed = float(rows[0]["l1_loss"]), float(rows[-1]["l1_loss"]), float(rows[-1]["elapsed"])
     s.say(f"  test L1 {l1_first:.6f} at iteration {CLI_TEST_AT[0]} -> {l1_last:.6f} at {CLI_TEST_AT[-1]} (PSNR "
-          f"{rows[0]['psnr']} -> {rows[-1]['psnr']}); training sections (StepTimer) {elapsed:.2f} s = "
+          f"{rows[0]['psnr']} -> {rows[-1]['psnr']}, LPIPS {rows[0]['lpips']} -> {rows[-1]['lpips']} "
+          f"{rows[-1]['lpips_kind']}); training sections (StepTimer) {elapsed:.2f} s = "
           f"{CLI_ITERATIONS / elapsed:.2f} iterations/s; alive {n_alive} of capacity {state.capacity}")
     if not l1_last < l1_first:
         fail("the trainer did not lower the test L1")
@@ -1585,6 +1617,8 @@ def phase6(s: Smoke, tmp: Path) -> dict:
     idx = int(np.float32(FT_PRUNE_PERCENT) * np.float32(before))
     rows = [r for r in csv.DictReader(open(out_b / "metric.csv")) if r["set"] == "test"]
     l1 = {int(r["iteration"]): float(r["l1_loss"]) for r in rows}
+    if not all(math.isfinite(float(r["lpips"])) and r["lpips_kind"] == "vgg-random" for r in rows):
+        fail(f"the finetune's metric.csv LPIPS is not finite and vgg-random: {[r['lpips'] for r in rows]}")
     its = re.search(r"Training sections: (\d+) iterations in ([\d.]+) s \(([\d.]+) it/s\)", text)
     s.say(f"  prune_finetune from chkpnt{CLI_RESUME_TO}.npz: {before} -> {after} alive at {FT_PRUNE_AT} (without "
           f"ties {before - idx - 1}, {after / before:.4f} kept); test L1 {l1.get(FT_TEST_AT[0])} at "
@@ -1747,6 +1781,223 @@ def phase6(s: Smoke, tmp: Path) -> dict:
     return paths
 
 
+def phase7(s: Smoke, tmp: Path) -> dict:
+    """A COLMAP source, VecTree with `--load_vq` serving and the metrics at
+    full width on phases 5 and 6; returns each path's launch counts."""
+    from lightgaussian_tpu_torch.cli import metrics as metrics_cli
+    from lightgaussian_tpu_torch.cli import render_sets, vectree as vectree_cli
+    from lightgaussian_tpu_torch.compress import vectree, vq
+    from lightgaussian_tpu_torch.data import colmap, dataset
+    from lightgaussian_tpu_torch.data.ply import load_gaussian_ply, read_ply
+    from lightgaussian_tpu_torch.data.scene import Scene
+    from lightgaussian_tpu_torch.eval import lpips, metrics
+    from lightgaussian_tpu_torch.models.camera import fov2focal
+    from lightgaussian_tpu_torch.ops import losses
+    from lightgaussian_tpu_torch.utils import image_io, stage_marks, threefry
+
+    torch = s.torch
+    dev = s.dev
+    src5, model5, out_c = tmp / "src5", tmp / "model5", tmp / "distill6"
+    paths = {}
+
+    # 7a: phase 5's train views and point cloud as a COLMAP source (binary PINHOLE cameras)
+    t0 = time.perf_counter()
+    blender = dataset.read_scene(src5, eval_split=True)
+    src7 = tmp / "colmap7"
+    sparse = src7 / "sparse" / "0"
+    sparse.mkdir(parents=True)
+    (src7 / "images").mkdir()
+    cams, images = {}, {}
+    for i, info in enumerate(blender.train_cameras):
+        f = fov2focal(info.fovx, info.width)
+        cams[i + 1] = colmap.ColmapCamera(i + 1, "PINHOLE", info.width, info.height,
+                                          np.array([f, fov2focal(info.fovy, info.height), info.width / 2,
+                                                    info.height / 2]))
+        images[i + 1] = colmap.ColmapImage(i + 1, colmap.rotmat2qvec(info.R.T), info.T, i + 1,
+                                           Path(info.image_path).name, np.zeros((0, 2)), np.zeros(0, np.int64))
+        shutil.copy(info.image_path, src7 / "images" / Path(info.image_path).name)
+    colmap.write_cameras_binary(sparse / "cameras.bin", cams)
+    colmap.write_images_binary(sparse / "images.bin", images)
+    v = read_ply(src5 / "points3d.ply")["vertex"]
+    xyz = np.stack([v["x"], v["y"], v["z"]], axis=1).astype(np.float64)
+    rgb = np.stack([v["red"], v["green"], v["blue"]], axis=1)
+    colmap.write_points3D_binary(sparse / "points3D.bin", xyz, rgb)
+    written_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene7 = Scene(str(src7), str(tmp / "colmap7_model"), resolution=1, shuffle=False, device=dev)
+    read_s = time.perf_counter() - t0
+    worst = {"R": 0.0, "T": 0.0, "fov": 0.0}
+    got_cams = scene7.scene_info.train_cameras
+    if [c.image_name for c in got_cams] != [c.image_name for c in blender.train_cameras]:
+        fail(f"the COLMAP source's cameras {[c.image_name for c in got_cams]} are not the Blender train views")
+    for c, b in zip(got_cams, blender.train_cameras):
+        worst["R"] = max(worst["R"], float(np.abs(c.R - b.R).max()))
+        worst["T"] = max(worst["T"], float(np.abs(c.T - b.T).max()))
+        worst["fov"] = max(worst["fov"], abs(c.fovx - b.fovx), abs(c.fovy - b.fovy))
+    cached_ply = (sparse / "points3D.ply").read_bytes() == (src5 / "points3d.ply").read_bytes()
+    s.say(f"  COLMAP source: {len(cams)} PINHOLE cameras, {len(images)} images and {xyz.shape[0]} points written in "
+          f"{written_s:.2f} s; Scene read it in {read_s:.2f} s ({scene7.gaussians.num_alive()} Gaussians from the "
+          f"cloud, {len(scene7.getTrainCameras())} cameras at {WIDTH}x{HEIGHT}); against the Blender reading: "
+          f"largest |dR| {worst['R']:.2e}, |dT| {worst['T']:.2e}, |d fov| {worst['fov']:.2e}; the cached "
+          f"points3D.ply {'is' if cached_ply else 'IS NOT'} the Blender source's point cloud byte for byte")
+    if not (worst["R"] < COLMAP_RT_TOL and worst["T"] < COLMAP_RT_TOL and worst["fov"] < COLMAP_FOV_TOL and cached_ply):
+        fail("the COLMAP source's cameras or points differ from the Blender source's")
+    del scene7
+    served = {}
+    for what, source, flags in (("colmap", src7, []), ("blender", src5, ["--eval", "--skip_test"])):
+        m = tmp / f"serve7_{what}"
+        it_dir = m / "point_cloud" / f"iteration_{CLI_RESUME_TO}"
+        it_dir.mkdir(parents=True)
+        shutil.copy(model5 / "point_cloud" / f"iteration_{CLI_RESUME_TO}" / "point_cloud.ply", it_dir)
+        reset_counts()
+        _, wall = _called(render_sets.main, ["-s", str(source), "-m", str(m), "-r", "1", "--quiet", "--device",
+                                             DEVICE, *flags])
+        s.sync()
+        paths[f"render_sets {what}"] = read_counts()
+        _launches_of(s, f"render_sets from the {what} source ({wall:.2f} s wall)", paths[f"render_sets {what}"],
+                     {"blend_forward_fast": N_VIEWS})
+        served[what] = sorted((m / "train" / f"ours_{CLI_RESUME_TO}" / "renders").glob("*.png"))
+    if not len(served["colmap"]) == len(served["blender"]) == N_VIEWS:
+        fail(f"render_sets served {len(served['colmap'])} and {len(served['blender'])} views")
+    d_max = max(int(np.abs(image_io.read_image(a).astype(np.int16) - image_io.read_image(b).astype(np.int16)).max())
+                for a, b in zip(served["colmap"], served["blender"]))
+    s.say(f"  the phase 5 model served from both sources: largest PNG difference {d_max}/255 over {N_VIEWS} views")
+    if d_max > 1:
+        fail(f"the COLMAP and Blender sources render {d_max}/255 apart")
+
+    # 7b: VecTree on the distilled model with its imp_score.npz, the CLI's defaults
+    ply_c = out_c / "point_cloud" / f"iteration_{DISTILL_TO}" / "point_cloud.ply"
+    vq_dir = tmp / "vq7"
+    fit, assign, captured = {}, {}, {}
+    train_codebook, quantize_fp16, quantize_features = (vq.train_codebook, vq.quantize_with_fp16_codebook,
+                                                        vectree.quantize_features)
+
+    def timed_fit(*args, **kwargs):
+        s.sync()
+        t = time.perf_counter()
+        stage_marks.start()
+        state = train_codebook(*args, **kwargs)
+        s.sync()
+        fit["s"], fit["marks"] = time.perf_counter() - t, stage_marks.stop()
+        return state
+
+    def timed_assign(*args):
+        s.sync()
+        t = time.perf_counter()
+        out = quantize_fp16(*args)
+        s.sync()
+        assign["ms"] = 1e3 * (time.perf_counter() - t)
+        return out
+
+    def kept(*args, **kwargs):
+        captured["result"], captured["feats"] = quantize_features(*args, **kwargs)
+        return captured["result"], captured["feats"]
+
+    vq.train_codebook, vq.quantize_with_fp16_codebook, vectree.quantize_features = timed_fit, timed_assign, kept
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        _, wall = _called(vectree_cli.main, ["--important_score_npz_path", str(out_c), "--input_path", str(ply_c),
+                                             "--save_path", str(vq_dir), "--codebook_size", str(VQ_CODEBOOK),
+                                             "--iteration_num", str(VQ_ITERATIONS), "--device", DEVICE])
+        s.sync()
+    finally:
+        vq.train_codebook, vq.quantize_with_fp16_codebook, vectree.quantize_features = (
+            train_codebook, quantize_fp16, quantize_features)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    paths["vectree"] = read_counts()
+    _launches_of(s, "vectree CLI (no counted kernel: the fit is matrix products and index_add_)",
+                 paths["vectree"], {})
+    result, qfeats = captured["result"], captured["feats"]
+    n = qfeats.shape[0]
+    bundle = vq_dir / "extreme_saving"
+    files = sorted(p.name for p in bundle.iterdir())
+    full = vectree.load_extreme(bundle)
+    cfg = vectree.VQConfig(sh_degree=DISTILL_SH, codebook_size=VQ_CODEBOOK, iterations=VQ_ITERATIONS)
+    sh = slice(6, 6 + cfg.sh_dim)
+    keep = result.non_vq_mask
+    feats = vectree.scene_to_feature_matrix(vectree.load_vq_scene(bundle, device=dev))  # the bundle, as served
+    source = vectree.scene_to_feature_matrix(load_gaussian_ply(ply_c, device=dev))
+    with np.load(bundle / "vq_indexs.npz") as z:
+        idx = vectree.unpack_bits_msb(z["arr_0"], n - int(keep.sum()), int(math.log2(cfg.codebook_size)))
+    codebook = result.codebook
+    vq_rows = source[~keep, sh]
+    err = float(np.mean((full[~keep, sh] - vq_rows) ** 2))
+    rand = threefry.normal(threefry.prng_key(9), (cfg.codebook_size, cfg.sh_dim), device=dev)
+    q_rand, _ = vq.quantize_with_fp16_codebook(torch.from_numpy(np.ascontiguousarray(vq_rows)).to(dev), rand)
+    err_rand = float(np.mean((q_rand.cpu().numpy() - vq_rows) ** 2))
+    round_trip = (np.array_equal(full, qfeats) and np.array_equal(full[:, 0:3], source[:, 0:3])
+                  and np.array_equal(full[keep, sh], source[keep, sh].astype(np.float16).astype(np.float32))
+                  and np.array_equal(full[:, -8:], source[:, -8:].astype(np.float16).astype(np.float32))
+                  and np.array_equal(feats[:, 0:3], full[:, 0:3]))
+    marks = fit["marks"]
+    split = {name: sum(ms for k, ms in marks if k == name) for name in VQ_STAGES}
+    if [k for k, _ in marks if k != "draw"] != list(VQ_STAGES[1:]) * cfg.iterations or set(dict(marks)) != set(VQ_STAGES):
+        fail(f"the fit's stage marks are not a draw per block and a step's two marks per iteration: {len(marks)} marks")
+    fit_ms = sum(split.values())
+    zip_mb = (vq_dir / "extreme_saving.zip").stat().st_size / 2**20
+    ply_mb = ply_c.stat().st_size / 2**20
+    s.say(f"  vectree CLI on the distilled model ({n} Gaussians, SH {DISTILL_SH}, imp_score.npz of its export): "
+          f"{wall:.2f} s wall; kept {int(keep.sum())} (int({VQ_KEEP} n) = {int(n * VQ_KEEP)}), {n - int(keep.sum())} "
+          f"quantized into {cfg.codebook_size} codes; files {files}")
+    s.say(f"  the fit: {cfg.iterations} iterations of chunk {cfg.chunk} in {fit['s']:.3f} s host = "
+          f"{1e3 * fit['s'] / cfg.iterations:.3f} ms an iteration; at its stage marks {fit_ms:.1f} ms: "
+          + ", ".join(f"{k} {v:.1f} ms ({v / fit_ms:.1%}, {v / cfg.iterations:.3f} ms an iteration)"
+                      for k, v in split.items())
+          + f"; the final assignment of {n} rows {assign['ms']:.1f} ms; peak device memory {peak_gb:.2f} GiB")
+    s.say(f"  bundle {zip_mb:.3f} MB (extreme_saving.zip) against point_cloud.ply {ply_mb:.3f} MB: "
+          f"{ply_mb / zip_mb:.2f}x; VQ rows' SH error {err:.6f} against {err_rand:.6f} for a random normal codebook "
+          f"({err / err_rand:.4f}); load_extreme {'equals' if round_trip else 'DIFFERS FROM'} the in-memory result "
+          f"(xyz exact, fp16 fields exact)")
+    if int(keep.sum()) != int(n * VQ_KEEP) or files != sorted(vectree.BUNDLE_FILES):
+        fail("the bundle keeps the wrong count or lacks a file")
+    if not (round_trip and np.isfinite(codebook).all() and idx.max() < cfg.codebook_size
+            and np.array_equal(full[~keep, sh], codebook[idx])):
+        fail("the bundle does not load back to the quantized features, or a VQ row is no codebook row")
+    if not err < VQ_RANDOM_SHARE * err_rand:
+        fail(f"the codebook's SH error {err:.6f} is not under {VQ_RANDOM_SHARE} of a random codebook's {err_rand:.6f}")
+
+    # 7c: serve the bundle as iteration DISTILL_TO + 1 beside the raw model
+    shutil.copytree(bundle, out_c / "point_cloud" / f"iteration_{DISTILL_TO + 1}" / "extreme_saving")
+    common = ["-s", str(src5), "-m", str(out_c), "--eval", "--skip_train", "-r", "1", "--quiet", "--device", DEVICE]
+    for what, flags in (("raw", ["--iteration", str(DISTILL_TO)]),
+                        ("--load_vq", ["--iteration", str(DISTILL_TO + 1), "--load_vq"])):
+        reset_counts()
+        _, wall = _called(render_sets.main, [*common, *flags])
+        s.sync()
+        paths[f"render_sets {what}"] = read_counts()
+        _launches_of(s, f"render_sets {what} ({wall:.2f} s wall)", paths[f"render_sets {what}"],
+                     {"blend_forward_fast": N_TEST_VIEWS})
+
+    # 7d: metrics over both
+    reset_counts()
+    _, wall = _called(metrics_cli.main, ["-m", str(out_c), "--device", DEVICE])
+    s.sync()
+    paths["metrics"] = read_counts()
+    _launches_of(s, f"metrics CLI ({wall:.2f} s wall incl. reading {4 * N_TEST_VIEWS} PNGs)", paths["metrics"],
+                 {"blur5": 2 * N_TEST_VIEWS})
+    res = json.loads((out_c / "results.json").read_text())
+    raw, vqd = res.get(f"ours_{DISTILL_TO}", {}), res.get(f"ours_{DISTILL_TO + 1}", {})
+    s.say(f"  results.json: raw PSNR {raw.get('PSNR')} SSIM {raw.get('SSIM')} LPIPS {raw.get('LPIPS')}; VQ PSNR "
+          f"{vqd.get('PSNR')} SSIM {vqd.get('SSIM')} LPIPS {vqd.get('LPIPS')}; lpips_kind {vqd.get('lpips_kind')}")
+    if not (raw and vqd and all(math.isfinite(r[k]) for r in (raw, vqd) for k in ("PSNR", "SSIM", "LPIPS"))
+            and raw["lpips_kind"] == vqd["lpips_kind"] == "vgg-random"):
+        fail(f"metrics wrote {res}")
+    if not vqd["PSNR"] > raw["PSNR"] - VQ_PSNR_DROP:
+        fail(f"the VQ model's PSNR {vqd['PSNR']:.3f} is more than {VQ_PSNR_DROP} dB under the raw model's")
+    method = out_c / "test" / f"ours_{DISTILL_TO + 1}"
+    name = sorted(p.name for p in (method / "renders").iterdir())[0]
+    render_img = metrics.load_image(method / "renders" / name, dev)
+    gt_img = metrics.load_image(method / "gt" / name, dev)
+    net = lpips.get_lpips_params(device=dev)
+    ssim_ms = s.event_ms(lambda: losses.ssim(render_img, gt_img))
+    lpips_ms = s.event_ms(lambda: net(render_img, gt_img), reps=5)
+    s.say(f"  a {WIDTH}x{HEIGHT} view's SSIM (B7 and the map) {ssim_ms:.3f} ms, LPIPS (two VGG16 stacks, float32, "
+          f"TF32 off) {lpips_ms:.3f} ms (CUDA events)")
+    print("phase 7 ok", flush=True)
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -1779,6 +2030,7 @@ def main() -> int:
     try:
         trainer_counts = timed(5, phase5, tmp)
         cli_paths = timed(6, phase6, tmp)
+        cli_paths.update(timed(7, phase7, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # launches on each kernel's path: the render CLI (B6), the training steps (B1-B4), the eval render

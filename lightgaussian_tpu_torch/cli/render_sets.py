@@ -2,9 +2,9 @@
 
 Port of `lightgaussian_tpu/cli/render_sets.py`, the serving path: the same
 flags (`--iteration -1` = latest, `--skip_train/--skip_test`, `--new_sh` for
-SH-truncating loads) without `--interpret`, plus `--device` (default cuda;
-without CUDA that raises unless `--device cpu` is given). `--load_vq` comes
-with the compression slice and raises for now.
+SH-truncating loads, `--load_vq` for the iteration's `extreme_saving/`
+bundle) without `--interpret`, plus `--device` (default cuda; without CUDA
+that raises unless `--device cpu` is given).
 
 Usage: python -m lightgaussian_tpu_torch.cli.render_sets -s <scene> -m <model_dir> [--device cpu]
 """

@@ -8,8 +8,7 @@ kernel); train/test stills unless skipped. Trajectories reuse a keyframe's
 binning while the measured splat drift stays under `--drift_px`, for at most
 `--rebin_every` frames. The flags are the JAX CLI's without `--interpret`,
 plus `--device` (default cuda; without CUDA that raises unless `--device
-cpu` is given). `--load_vq` comes with the compression slice and raises for
-now.
+cpu` is given); `--load_vq` renders the iteration's `extreme_saving/` bundle.
 
 Usage: python -m lightgaussian_tpu_torch.cli.render_video -s <scene> -m <model_dir> --video [--device cpu]
 """

@@ -14,12 +14,18 @@ statistics "max_radii2d", "xyz_grad_accum" and "denom".
 `flatten_train_state` and `unflatten_train_state` turn that dict into the
 flat keys of the JAX package's checkpoint files and back
 (`train/checkpoint.py` reads and writes the files).
+
+A VQ codebook state travels as its three arrays (`embed`, `embed_avg`,
+`cluster_size`); LPIPS weights as the JAX package's `LPIPSParams` fields:
+(kernel HWIO, bias) per convolution and the five lin vectors.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from lightgaussian_tpu_torch.compress.vq import CodebookState
+from lightgaussian_tpu_torch.eval.lpips import LPIPS
 from lightgaussian_tpu_torch.models.camera import Camera
 from lightgaussian_tpu_torch.models.gaussians import GaussianScene
 from lightgaussian_tpu_torch.train.optim import AdamState
@@ -159,3 +165,30 @@ def unflatten_train_state(flat: dict, active_sh_degree: int, max_sh_degree: int)
         **{k: flat[k] for k in STAT_FIELDS},
     )
 
+
+def codebook_state_from_numpy(embed, embed_avg, cluster_size,
+                              device: str | torch.device = "cuda") -> CodebookState:
+    """A CodebookState from another package's three arrays (float32)."""
+    dev = resolve_device(device)
+
+    def f32(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
+
+    return CodebookState(embed=f32(embed), embed_avg=f32(embed_avg), cluster_size=f32(cluster_size))
+
+
+def codebook_state_to_numpy(state: CodebookState) -> dict:
+    """{"embed", "embed_avg", "cluster_size"} on the host."""
+    return {k: _np(getattr(state, k)) for k in ("embed", "embed_avg", "cluster_size")}
+
+
+def lpips_params_from_numpy(convs, lins, kind: str, device: str | torch.device = "cuda") -> LPIPS:
+    """An LPIPS module from (kernel HWIO, bias) per convolution and the
+    lin vectors; the kernels become OIHW for `F.conv2d`."""
+    dev = resolve_device(device)
+
+    def f32(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev)
+
+    return LPIPS([(f32(w).permute(3, 2, 0, 1).contiguous(), f32(b)) for w, b in convs],
+                 [f32(lin) for lin in lins], kind)

@@ -1,31 +1,29 @@
-"""Dataset readers: Blender/NeRF-synthetic scenes, and cameras on a device.
+"""Dataset readers: COLMAP and Blender/NeRF-synthetic scenes, and cameras
+on a device.
 
-Port of the Blender half of `lightgaussian_tpu/data/dataset.py`: the
-every-camera Blender reader with alpha compositing against the background,
-the NeRF++ normalization radius, the >1600 px auto-downscale, and the
-`cameras.json` export. Host work is numpy; images go through
-`utils/image_io` (PIL only for formats other than 8-bit PNG). COLMAP scenes
-come with the data slice.
+Port of `lightgaussian_tpu/data/dataset.py`: COLMAP scenes (PINHOLE and
+SIMPLE_PINHOLE cameras sorted by image name, every 8th image held out for
+evaluation, the point cloud cached as `sparse/0/points3D.ply`), the Blender
+reader with alpha compositing against the background, the NeRF++
+normalization radius, the >1600 px auto-downscale, and the `cameras.json`
+export. Host work is numpy; images go through `utils/image_io` (PIL only
+for formats other than 8-bit PNG).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from lightgaussian_tpu_torch.data import ply
+from lightgaussian_tpu_torch.data import colmap, ply
 from lightgaussian_tpu_torch.models.camera import Camera, focal2fov, fov2focal, world_to_view
 from lightgaussian_tpu_torch.utils import image_io
 
 _WARNED_LARGE = []
-
-COLMAP_NOT_PORTED = (
-    "COLMAP scenes are not read by the PyTorch port yet: the COLMAP readers "
-    "come with the data slice (ROADMAP.md, queue A, 'Data and the first CLIs')"
-)
 
 
 @dataclasses.dataclass
@@ -65,6 +63,64 @@ def nerfpp_norm(cam_infos: list[CameraInfo]) -> dict:
     avg = centers.mean(axis=0)
     diagonal = float(np.linalg.norm(centers - avg, axis=1).max())
     return {"translate": -avg, "radius": diagonal * 1.1}
+
+
+def read_colmap_scene(path: str | Path, images_dir: str = "images", eval_split: bool = False,
+                      llffhold: int = 8) -> SceneInfo:
+    path = Path(path)
+    sparse = path / "sparse" / "0"
+    if (sparse / "images.bin").exists():
+        extr = colmap.read_images_binary(sparse / "images.bin")
+        intr = colmap.read_cameras_binary(sparse / "cameras.bin")
+    else:
+        extr = colmap.read_images_text(sparse / "images.txt")
+        intr = colmap.read_cameras_text(sparse / "cameras.txt")
+
+    cam_infos = []
+    for im in extr.values():
+        cam = intr[im.camera_id]
+        if cam.model == "SIMPLE_PINHOLE":
+            fx = fy = cam.params[0]
+        elif cam.model == "PINHOLE":
+            fx, fy = cam.params[0], cam.params[1]
+        else:
+            raise ValueError(
+                f"Colmap camera model not handled: {cam.model} (only PINHOLE/"
+                "SIMPLE_PINHOLE undistorted datasets supported)"
+            )
+        image_path = str(path / images_dir / os.path.basename(im.name))
+        cam_infos.append(
+            CameraInfo(
+                uid=cam.id,
+                R=colmap.qvec2rotmat(im.qvec).T,  # stored transposed, loader convention
+                T=np.array(im.tvec),
+                fovx=focal2fov(fx, cam.width),
+                fovy=focal2fov(fy, cam.height),
+                image_path=image_path,
+                image_name=Path(image_path).stem,
+                width=cam.width,
+                height=cam.height,
+            )
+        )
+    cam_infos.sort(key=lambda c: c.image_name)
+
+    if eval_split:
+        train = [c for i, c in enumerate(cam_infos) if i % llffhold != 0]
+        test = [c for i, c in enumerate(cam_infos) if i % llffhold == 0]
+    else:
+        train, test = cam_infos, []
+
+    # the point cloud: the cached PLY, else the bin or txt file converted once
+    ply_path = sparse / "points3D.ply"
+    if not ply_path.exists():
+        if (sparse / "points3D.bin").exists():
+            xyz, rgb, _ = colmap.read_points3D_binary(sparse / "points3D.bin")
+        else:
+            xyz, rgb, _ = colmap.read_points3D_text(sparse / "points3D.txt")
+        ply.store_point_cloud(ply_path, xyz, rgb)
+    pcd = ply.fetch_point_cloud(ply_path)
+
+    return SceneInfo(pcd, train, test, nerfpp_norm(train), str(ply_path))
 
 
 def _read_transforms(path: Path, fname: str, white_background: bool) -> list[CameraInfo]:
@@ -130,7 +186,7 @@ def read_scene(
     path: str | Path, images_dir: str = "images", white_background: bool = False, eval_split: bool = False
 ) -> SceneInfo:
     if detect_scene_type(path) == "Colmap":
-        raise NotImplementedError(COLMAP_NOT_PORTED)
+        return read_colmap_scene(path, images_dir, eval_split)
     return read_blender_scene(path, white_background, eval_split)
 
 

@@ -3,9 +3,10 @@
 Port of `lightgaussian_tpu/data/scene.py`: scene-type sniffing, the first
 run's `input.ply` copy and `cameras.json` export, camera shuffling, the
 NeRF++ `cameras_extent`, and the model's start: from the point cloud for a
-fresh run, `load_ply` / SH-truncating `load_ply_sh` for a saved iteration.
+fresh run; for a saved iteration `load_ply`, SH-truncating `load_ply_sh`, or
+with `load_vq` its `extreme_saving/` bundle (the VecTree-compressed model).
 Saving writes `point_cloud/iteration_N/point_cloud.ply` in the reference's
-layout. `load_vq` needs the compression slice and raises until then.
+layout.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from pathlib import Path
 
 import torch
 
+from lightgaussian_tpu_torch.compress import vectree
 from lightgaussian_tpu_torch.data import dataset as D
 from lightgaussian_tpu_torch.data import ply as ply_io
 from lightgaussian_tpu_torch.models import gaussians as G
@@ -43,11 +45,6 @@ class Scene:
         self.source_path = Path(source_path)
         self.model_path = Path(model_path)
         self.loaded_iter = None
-        if load_vq:
-            raise NotImplementedError(
-                "--load_vq (extreme_saving/ bundles) comes with the compression "
-                "slice (ROADMAP.md, queue A, 'Compression')"
-            )
 
         if load_iteration is not None:
             if load_iteration == -1:
@@ -86,10 +83,13 @@ class Scene:
         ]
 
         if self.loaded_iter:
-            ply_path = self.model_path / "point_cloud" / f"iteration_{self.loaded_iter}" / "point_cloud.ply"
-            self.gaussians = ply_io.load_gaussian_ply(
-                ply_path, new_sh_degree=new_sh_degree, device=self.device
-            )
+            it_dir = self.model_path / "point_cloud" / f"iteration_{self.loaded_iter}"
+            if load_vq:
+                self.gaussians = vectree.load_vq_scene(it_dir / "extreme_saving", device=self.device)
+            else:
+                self.gaussians = ply_io.load_gaussian_ply(
+                    it_dir / "point_cloud.ply", new_sh_degree=new_sh_degree, device=self.device
+                )
         else:
             pts, cols, _ = info.point_cloud
             self.gaussians = G.from_point_cloud(pts, cols, max_sh_degree=max_sh_degree, device=self.device)

@@ -5,18 +5,14 @@ the model directory (a uuid name when none is given) and keeps the
 configuration as JSON; `MetricsLogger` owns an optional TensorBoard writer
 and the append-only `metric.csv` with the JAX package's columns;
 `training_report` renders the test set and a train sample at a test
-iteration and logs the image metrics.
-
-The `lpips` column holds `nan` and `lpips_kind` holds `none`: the LPIPS
-network comes with the evaluation slice, and a score from anything else must
-not stand under another kind's name.
+iteration and logs the image metrics, LPIPS with the network's kind
+(`vgg-random` unless pretrained weights are found, `eval/lpips.py`).
 """
 from __future__ import annotations
 
 import csv
 import dataclasses
 import json
-import math
 import statistics
 import time
 import uuid
@@ -75,7 +71,7 @@ class MetricsLogger:
 
     def csv_row(self, iteration: int, set_name: str, l1: float, psnr: float,
                 ssim: float, lpips: float, file_size_mb: float, elapsed_s: float,
-                lpips_kind: str = "none") -> None:
+                lpips_kind: str = "vgg-random") -> None:
         with open(self.csv_path, "a", newline="") as f:
             csv.writer(f).writerow(
                 [iteration, set_name, f"{l1:.6f}", f"{psnr:.4f}", f"{ssim:.6f}",
@@ -96,12 +92,17 @@ def training_report(
     train_cameras_sample: list,
     bg: torch.Tensor,
     elapsed_s: float,
+    lpips_params=None,
 ) -> dict:
     """Evaluate every test camera and the train sample through
     `eval_render_fn` (`train.step.make_eval_render`: one exact render and
-    one five-moment SSIM per view) and log the mean L1, PSNR and SSIM to
-    TensorBoard and metric.csv. The `file_size` column holds 0: the loop
-    reports before it saves, and hands the report no file to weigh."""
+    one five-moment SSIM per view) and LPIPS against the clipped ground
+    truth, and log the means of L1, PSNR, SSIM and LPIPS to TensorBoard and
+    metric.csv. The `file_size` column holds 0: the loop reports before it
+    saves, and hands the report no file to weigh."""
+    from lightgaussian_tpu_torch.eval.lpips import get_lpips_params
+
+    lpips_params = lpips_params or get_lpips_params(device=bg.device)
     results = {}
 
     for set_name, cams in (("test", test_cameras), ("train", train_cameras_sample)):
@@ -109,15 +110,16 @@ def training_report(
             continue
         per_view = []
         for cam in cams:
-            _img, l1, psnr, ssim = eval_render_fn(scene_state, cam, bg)
-            per_view.append(torch.stack([l1, psnr, ssim]))
+            img, l1, psnr, ssim = eval_render_fn(scene_state, cam, bg)
+            lp = lpips_params(img, torch.clamp(cam.gt_image, 0.0, 1.0))
+            per_view.append(torch.stack([l1, psnr, ssim, lp]))
         # one transfer for the whole set
-        l1s, psnrs, ssims = torch.stack(per_view).T.tolist()
+        l1s, psnrs, ssims, lpipss = torch.stack(per_view).T.tolist()
         row = {
             "l1": statistics.fmean(l1s),
             "psnr": statistics.fmean(psnrs),
             "ssim": statistics.fmean(ssims),
-            "lpips": math.nan,
+            "lpips": statistics.fmean(lpipss),
         }
         results[set_name] = row
         print(
@@ -127,7 +129,7 @@ def training_report(
         for k, v in row.items():
             logger.scalar(f"{set_name}/loss_viewpoint - {k}", v, iteration)
         logger.csv_row(iteration, set_name, row["l1"], row["psnr"], row["ssim"],
-                       row["lpips"], 0.0, elapsed_s, lpips_kind="none")
+                       row["lpips"], 0.0, elapsed_s, lpips_kind=lpips_params.kind)
     return results
 
 

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from lightgaussian_tpu.cli import prune_finetune as jcli_prune
 from lightgaussian_tpu.cli import save_imp_score as jcli_imp
@@ -181,8 +182,22 @@ def test_render_video_cli_frame_counts(workspace, tmp_path):
     tcli_video.main([*_common(dataset, m), "--skip_train", "--spiral", "--n_frames", "2", "--device", "cpu"])
     assert len(list((m / "spiral" / f"ours_{START}").glob("*.png"))) == 2
     assert len(list((m / "test" / f"ours_{START}" / "renders").glob("*.png"))) == 2
-    with pytest.raises(NotImplementedError, match="compression slice"):
-        tcli_video.main([*_common(dataset, m), "--skip_train", "--skip_test", "--load_vq", "--device", "cpu"])
+    # --load_vq renders the next iteration's extreme_saving/ bundle, made by the port's VecTree CLI
+    from lightgaussian_tpu_torch.cli import vectree as tcli_vq
+
+    np.savez(m / "imp_score.npz", np.linspace(0.0, 1.0, 150).astype(np.float32))
+    tcli_vq.main(["--important_score_npz_path", str(m), "--input_path",
+                  str(m / "point_cloud" / f"iteration_{START}" / "point_cloud.ply"), "--save_path", str(m / "vq"),
+                  "--iteration_num", "10", "--codebook_size", "64", "--no_save_ply", "--device", "cpu"])
+    shutil.copytree(m / "vq" / "extreme_saving", m / "point_cloud" / f"iteration_{START + 1}" / "extreme_saving")
+    tcli_video.main([*_common(dataset, m), "--iteration", str(START + 1), "--skip_train", "--load_vq", "--circular",
+                     "--radius", "0.01", "--n_frames", "2", "--device", "cpu"])
+    raw = [np.asarray(Image.open(p), np.float32) for p in sorted((m / "test" / f"ours_{START}" / "renders").glob("*.png"))]
+    vq = [np.asarray(Image.open(p), np.float32)
+          for p in sorted((m / "test" / f"ours_{START + 1}" / "renders").glob("*.png"))]
+    assert len(vq) == len(raw) == 2 and len(list((m / "circular" / f"ours_{START + 1}").glob("*.png"))) == 2
+    for r, q in zip(raw, vq):  # the bundle keeps the 40% most important rows and fp16 attributes: close to raw
+        assert q.std() > 1.0 and np.abs(q - r).mean() < 8.0
 
 
 @pytest.mark.parametrize("name", sorted(CLIS))

@@ -252,13 +252,48 @@ def test_scene_matches_jax(workspace):
 
 
 def test_unported_inputs_raise(workspace, tmp_path):
-    src, model, _ = workspace
-    (tmp_path / "colmap" / "sparse").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="COLMAP"):
-        tds.read_scene(tmp_path / "colmap")
-    with pytest.raises(NotImplementedError, match="compression"):
-        tscene.Scene(str(src), str(model), load_iteration=-1, load_vq=True, device="cpu")
-    # a fresh run is ported now: it starts from the point cloud, as the JAX Scene does
+    """The inputs slice 1 left out are read now, as the JAX package reads
+    them: a COLMAP source, a fresh run from the point cloud, and a saved
+    iteration's `extreme_saving/` bundle (`load_vq`), in `Scene` and in the
+    render CLI."""
+    import shutil
+
+    from lightgaussian_tpu.cli import render_sets as jcli
+    from lightgaussian_tpu.compress import vectree as jvt
+    from lightgaussian_tpu.data import colmap as jcolmap
+
+    src, model, jscene_ = workspace
+    # a COLMAP source whose cameras are the Blender source's
+    colmap_src = tmp_path / "colmap"
+    sparse = colmap_src / "sparse" / "0"
+    sparse.mkdir(parents=True)
+    blender = jds.read_blender_scene(src, eval_split=True)
+    cams = blender.train_cameras + blender.test_cameras
+    f = SIZE / (2.0 * math.tan(0.45))
+    jcolmap.write_cameras_binary(sparse / "cameras.bin", {1: jcolmap.ColmapCamera(
+        1, "PINHOLE", SIZE, SIZE, np.array([f, f, SIZE / 2, SIZE / 2]))})
+    jcolmap.write_images_binary(sparse / "images.bin", {i + 1: jcolmap.ColmapImage(
+        i + 1, jcolmap.rotmat2qvec(c.R.T), c.T, 1, f"{c.image_name}_{i}.png", np.zeros((0, 2)),
+        np.zeros(0, np.int64)) for i, c in enumerate(cams)})
+    jcolmap.write_points3D_binary(sparse / "points3D.bin", *jply.fetch_point_cloud(src / "points3d.ply")[:1],
+                                  np.full((50, 3), 128))
+    (colmap_src / "images").mkdir()
+    for i, c in enumerate(cams):
+        shutil.copy(c.image_path, colmap_src / "images" / f"{c.image_name}_{i}.png")
+    shutil.copytree(colmap_src, tmp_path / "jcolmap")
+    t_info = tds.read_scene(colmap_src, eval_split=True)
+    j_info = jds.read_scene(tmp_path / "jcolmap", eval_split=True)
+    assert len(t_info.test_cameras) == 1 and len(t_info.train_cameras) == 3
+    for ct, cj in zip(t_info.train_cameras + t_info.test_cameras, j_info.train_cameras + j_info.test_cameras):
+        assert ct.image_name == cj.image_name
+        np.testing.assert_allclose(ct.R, cj.R, rtol=0, atol=1e-12)
+        np.testing.assert_array_equal(ct.T, cj.T)
+        assert (ct.fovx, ct.fovy) == (cj.fovx, cj.fovy)
+        # and the Blender reading of the same camera (its R is a float32 look-at, orthonormal to 1e-7)
+        cb = cams[int(ct.image_name.split("_")[-1])]
+        np.testing.assert_allclose(ct.R, cb.R, rtol=0, atol=1e-7)
+        assert abs(ct.fovx - cb.fovx) < 1e-12
+    # a fresh run starts from the point cloud, as the JAX Scene does
     fresh = tscene.Scene(str(src), str(tmp_path / "fresh"), device="cpu")
     jfresh = jscene.Scene(str(src), str(tmp_path / "jfresh"), load_images=False)
     assert fresh.loaded_iter is None and int(fresh.gaussians.alive.sum()) == 50
@@ -267,8 +302,27 @@ def test_unported_inputs_raise(workspace, tmp_path):
     assert (tmp_path / "fresh" / "input.ply").read_bytes() == (src / "points3d.ply").read_bytes()
     assert json.loads((tmp_path / "fresh" / "cameras.json").read_text()) == json.loads(
         (tmp_path / "jfresh" / "cameras.json").read_text())
-    with pytest.raises(NotImplementedError, match="compression"):
-        tcli.main(["-s", str(src), "-m", str(model), "--quiet", "--device", "cpu", "--load_vq"])
+    # load_vq: a JAX bundle under the next iteration, read by both Scenes and served by both CLIs
+    m = tmp_path / "vq_model"
+    shutil.copytree(model, m)
+    cfg = jvt.VQConfig(sh_degree=jscene_.max_sh_degree, codebook_size=64, iterations=10, chunk=128)
+    jvt.quantize_scene(jscene_, np.linspace(0.0, 1.0, 300), m / "vq", cfg)
+    shutil.copytree(m / "vq" / "extreme_saving", m / "point_cloud" / f"iteration_{ITER + 1}" / "extreme_saving")
+    kw = dict(eval_split=True, load_iteration=ITER + 1, shuffle=False, load_vq=True)
+    t = tscene.Scene(str(src), str(m), device="cpu", **kw)
+    j = jscene.Scene(str(src), str(m), **kw)
+    for fld in FIELDS:
+        np.testing.assert_array_equal(_np(getattr(t.gaussians, fld)), np.asarray(getattr(j.gaussians, fld)),
+                                      err_msg=fld)
+    mj = tmp_path / "vq_model_jax"
+    shutil.copytree(m, mj)
+    tcli.main(["-s", str(src), "-m", str(m), "--quiet", "--device", "cpu", "--load_vq", "--eval", "--skip_train"])
+    jcli.main(["-s", str(src), "-m", str(mj), "--quiet", "--interpret", "--load_vq", "--eval", "--skip_train"])
+    got = _pngs(m / "test" / f"ours_{ITER + 1}" / "renders")
+    want = _pngs(mj / "test" / f"ours_{ITER + 1}" / "renders")
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert np.abs(g - w).max() <= 1 and g.std() > 1.0
 
 
 @pytest.mark.parametrize("argv", [[], ["-w"], ["--resolution", "2"], ["--eval", "--images", "imgs", "--skip_test"]])
@@ -363,8 +417,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lightgaussian_tpu'))\n"
-        "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 44 else 0)\n"
+        "new = {'compress.vq', 'compress.vectree', 'data.colmap', 'eval.lpips', 'eval.metrics', 'utils.threefry',\n"
+        "       'cli.convert', 'cli.vectree', 'cli.metrics', 'cli.full_eval'}\n"
+        "missing = sorted(new - {m.split('.', 1)[1] for m in mods})\n"
+        "print(len(mods), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(mods) < 62 else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

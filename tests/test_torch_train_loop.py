@@ -225,8 +225,9 @@ def test_loop_metric_csv_matches_jax(loop_world):
         assert float(tr["l1_loss"]) == pytest.approx(float(jr["l1_loss"]), abs=1e-4)
         assert float(tr["psnr"]) == pytest.approx(float(jr["psnr"]), abs=1e-3)
         assert float(tr["ssim"]) == pytest.approx(float(jr["ssim"]), abs=1e-4)
-        # no LPIPS network in the port yet: never a number under another kind's name
-        assert tr["lpips"] == "nan" and tr["lpips_kind"] == "none"
+        # the same seeded VGG in both packages (utils/threefry.py draws JAX's stream)
+        assert float(tr["lpips"]) == pytest.approx(float(jr["lpips"]), abs=1e-4)
+        assert tr["lpips_kind"] == jr["lpips_kind"] == "vgg-random"
 
 
 def test_loop_checkpoint_loads_in_both_packages(loop_world):
@@ -329,7 +330,12 @@ def test_config_round_trip_and_logger_schema(tmp_path):
     logger.csv_row(1, "test", 0.1, 20.0, 0.9, math.nan, 0.0, 1.0)
     assert (out / "metric_legacy.csv").exists()
     rows = list(csv.DictReader(open(out / "metric.csv")))
-    assert list(rows[0]) == tlogging.CSV_FIELDS and rows[0]["lpips_kind"] == "none"
+    # the JAX logger writes the same row, and both default the kind to the seeded network's
+    (tmp_path / "j").mkdir()
+    jlogger = JLogger(tmp_path / "j", enable_tensorboard=False)
+    jlogger.csv_row(1, "test", 0.1, 20.0, 0.9, math.nan, 0.0, 1.0)
+    assert rows == list(csv.DictReader(open(tmp_path / "j" / "metric.csv")))
+    assert list(rows[0]) == tlogging.CSV_FIELDS and rows[0]["lpips_kind"] == "vgg-random"
     timer = tlogging.StepTimer()
     timer.resume()
     timer.pause()
