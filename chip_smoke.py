@@ -130,6 +130,32 @@ Phases, each of which exits non-zero on failure:
      both (B7 one a view, LPIPS finite and vgg-random, PSNR(VQ) above
      PSNR(raw) - 1 dB), with a view's SSIM and LPIPS timed.
      Phases 5 and 6 also hold their metric.csv's LPIPS finite and vgg-random.
+  8. The live viewer, camera-batched training and the multi-device paths at
+     full width on phases 4 to 7, each path with its launch counts read
+     around it: a viewer client on a localhost socket asks `NetworkGUI.poll`
+     for phase 5's model from its first train view at scales 1.0 and 0.5
+     and once at zero resolution (B6 2; both frames byte for byte
+     `image_to_bytes` of `render(..., fast=True)`, the verify string the
+     source path); `make_train_step(camera_batch=4)` on phase 4's start
+     (B1, B2, B3 and B4 4 each; Adam's first moment against the mean of the
+     four single steps' by B2's rules, the parameters against one Adam
+     update on that mean where the gradient is strong, denom and
+     max_radii2d their sum and maximum), timed against four single steps;
+     `cli.train_densify_prune --camera_batch 4` for 16 iterations on phase
+     5's source with the viewer on at a free port and a client served
+     through it (B1 64 + 26 evaluated views, B2 and B3 64, B4 64 + 8, B7 26,
+     B6 1; the test L1 falls); and, in torch.cuda.device_count() processes
+     under NCCL (one card each, a FileStore in the phase's directory; a
+     failed rank fails the phase), `parallel_render` of the 8 serving views
+     (B6 8; bit for bit `render(fast=True)` on one card, 1e-5 on more),
+     `make_parallel_train_step` and `make_gauss_train_step` at mesh
+     (world, 1) (B1, B2, B3 and B4 once each; against `make_train_step` by
+     B2's rules), `accumulate_gss_sharded` over the 8 views (B5 8 over the
+     ranks; against `accumulate_gss` at phase 3's full-size limits) and
+     `vectree.quantize_features` with a mesh on phase 7's distilled model
+     (200 iterations of the CLI's codebook and chunk; SH error under a
+     quarter of a random codebook's), each timed beside its single-device
+     counterpart.
 Each phase ends with its own seconds. Then a `{"kernels": [...]}` line of the
 nine kernels, the card line, and the final `{"ok": true, "device": {...}}`
 line.
@@ -288,6 +314,7 @@ COUNT_STAGES = ("preprocess", "binning", "B5", "compose")
 # Phase 5, the trainer's schedule (its flags are built from these).
 CLI_ITERATIONS = 100
 CLI_RESUME_TO = 110
+CLI_VIEWER_TO = 150  # the viewer-on and viewer-off runs resume from CLI_RESUME_TO to here
 CLI_DENSIFY = (20, 25, 80)  # from, every, until
 CLI_OPACITY_RESET = 60
 CLI_PRUNE_AT, CLI_PRUNE_PERCENT = 90, 0.3
@@ -316,6 +343,14 @@ VQ_CODEBOOK, VQ_ITERATIONS = 8192, 1000  # the defaults of --codebook_size and -
 VQ_RANDOM_SHARE = 0.25  # the VQ rows' SH error under this share of a random codebook's (the JAX suite's rule)
 VQ_PSNR_DROP = 1.0  # dB: PSNR(VQ) > PSNR(raw) - this (tests/test_cli.py)
 VQ_STAGES = ("draw", "nearest code", "EMA + expire")
+# Phase 8, on phases 4 to 7: the live viewer, camera-batched training and the multi-device paths.
+VIEWER_SCALES = (1.0, 0.5)  # the scaling_modifier of the two frames asked of the viewer's poll
+CAMERA_BATCH = 4
+BATCH_STEP_REPS = 3  # the batched step and four single steps, in turns
+BATCH_CLI_ITERATIONS = 16
+BATCH_CLI_TEST_AT = (1, 16)
+VQ8_ITERATIONS = 200  # the sharded fit's, at the CLI's codebook and chunk
+MULTI_TOL = 1e-5  # the strip renderer against render(fast=True) on more than one card (the JAX suite's)
 
 
 def fail(msg: str) -> None:
@@ -1272,7 +1307,8 @@ def phase4(s: Smoke, blur_errors: dict) -> dict:
     stage_split(s, step_marks[STEP_WARMUP:], TRAIN_STAGES, step_ms[STEP_WARMUP:], "train step")
     time_training_kernels(s, state, cams[0], bg, blur_errors)
     print("phase 4 ok", flush=True)
-    return {"train": train_counts, "eval": eval_counts}
+    # the noisy start and its cameras (with the cached SSIM moments) serve phase 8's camera-batched step
+    return {"train": train_counts, "eval": eval_counts, "start": scene, "cams": cams}
 
 
 class _Tee:
@@ -1487,15 +1523,37 @@ def phase5(s: Smoke, tmp: Path) -> dict:
     text2, wall2 = _called(train_densify_prune.main, [
         *common_flags, "--start_checkpoint", str(ckpt_path), "--iterations", str(CLI_RESUME_TO),
         "--prune_iterations", str(10 * CLI_RESUME_TO), "--test_iterations", str(CLI_RESUME_TO),
-        "--save_iterations", str(CLI_RESUME_TO), "--checkpoint_iterations", str(CLI_RESUME_TO),
+        "--save_iterations", str(CLI_RESUME_TO), "--checkpoint_iterations", str(CLI_RESUME_TO), "--port", "0",
     ])
     state2, it2, _ = checkpoint.load_checkpoint(out / f"chkpnt{CLI_RESUME_TO}.npz", device=dev)
     resumed = f"at iteration {CLI_ITERATIONS}" in text2 and f"{CLI_RESUME_TO - CLI_ITERATIONS} iterations in" in text2
-    if not (resumed and it2 == state2.step == CLI_RESUME_TO and "viewer is not ported" in text2):
+    # the viewer on (no --disable_viewer): its listener opens, and with no viewer connected training goes on
+    if not (resumed and it2 == state2.step == CLI_RESUME_TO and "[viewer]" not in text2):
         fail(f"the resumed run did not start at {CLI_ITERATIONS + 1} and end at {CLI_RESUME_TO}")
     if torch.equal(state2.scene.means, state.scene.means) or not torch.isfinite(state2.scene.means).all():
         fail("the resumed run left the checkpoint's means as they were")
     s.say(f"  resumed from chkpnt{CLI_ITERATIONS}.npz to {CLI_RESUME_TO} in {wall2:.2f} s wall")
+
+    # what the open listener costs a run that no viewer joins: the same resumed run with it and without
+    rates = {}
+    for viewer in ("off", "on"):
+        reset_counts()
+        text3, _ = _called(train_densify_prune.main, [
+            *common_flags[:3], str(tmp / f"viewer_{viewer}"), *common_flags[4:],
+            "--start_checkpoint", str(out / f"chkpnt{CLI_RESUME_TO}.npz"), "--iterations", str(CLI_VIEWER_TO),
+            "--prune_iterations", str(10 * CLI_VIEWER_TO), "--test_iterations", str(10 * CLI_VIEWER_TO),
+            "--save_iterations", str(10 * CLI_VIEWER_TO), "--checkpoint_iterations", str(10 * CLI_VIEWER_TO),
+            *(["--disable_viewer"] if viewer == "off" else ["--port", "0"]),
+        ])
+        m = re.search(r"Training sections: (\d+) iterations in [\d.]+ s \(([\d.]+) it/s\)", text3)
+        n_fast = read_counts()["blend_forward_fast"]
+        if not m or int(m.group(1)) != CLI_VIEWER_TO - CLI_RESUME_TO or n_fast:
+            fail(f"the viewer-{viewer} run printed no training sections line for "
+                 f"{CLI_VIEWER_TO - CLI_RESUME_TO} iterations, or rendered {n_fast} viewer frames")
+        rates[viewer] = float(m.group(2))
+    s.say(f"  viewer listener open, no viewer connected: {rates['on']:.2f} iterations/s over "
+          f"{CLI_VIEWER_TO - CLI_RESUME_TO} resumed iterations (training sections), against {rates['off']:.2f} "
+          f"with --disable_viewer (one run each, off first)")
     reset_counts()
     render_sets.main(["-s", str(src), "-m", str(out), "--eval", "--skip_train", "-r", "1", "--quiet",
                       "--device", DEVICE])
@@ -1998,6 +2056,417 @@ def phase7(s: Smoke, tmp: Path) -> dict:
     return paths
 
 
+def _recv_exact(sock, n: int) -> bytes:
+    buf = b""
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        if not chunk:
+            raise ConnectionError("the server closed the connection")
+        buf += chunk
+    return buf
+
+
+def viewer_message(cam, scale: float, train: bool) -> dict:
+    """What a SIBR viewer sends for `cam`: the reference's transposed
+    matrices with columns 1 and 2 negated."""
+    wvt = cam.world_view.cpu().numpy().T.copy()
+    fpt = cam.full_proj.cpu().numpy().T.copy()
+    for m in (wvt, fpt):
+        m[:, 1:3] *= -1
+    return {"resolution_x": cam.width, "resolution_y": cam.height, "train": train,
+            "fov_y": 2.0 * math.atan(float(cam.tan_fovy)), "fov_x": 2.0 * math.atan(float(cam.tan_fovx)),
+            "z_near": 0.01, "z_far": 100.0, "shs_python": False, "rot_scale_python": False, "keep_alive": False,
+            "scaling_modifier": scale, "view_matrix": wvt.reshape(-1).tolist(),
+            "view_projection_matrix": fpt.reshape(-1).tolist()}
+
+
+def viewer_client(port: int, requests: list, replies: list, connected=None) -> None:
+    """A viewer on a thread: connect (retrying while the listener is not up
+    yet; then set the `connected` event where one is given), send each
+    request, read back its frame (none at zero resolution) and the verify
+    string. An error is put among the replies."""
+    import socket
+
+    try:
+        deadline = time.time() + 300
+        while True:
+            try:
+                sock = socket.create_connection(("127.0.0.1", port), timeout=300)
+                break
+            except OSError:
+                if time.time() > deadline:
+                    raise
+                time.sleep(0.05)
+        if connected is not None:
+            connected.set()
+        with sock:
+            for msg in requests:
+                raw = json.dumps(msg).encode("utf-8")
+                sock.sendall(len(raw).to_bytes(4, "little") + raw)
+                n_img = 3 * msg["resolution_x"] * msg["resolution_y"]
+                img = _recv_exact(sock, n_img) if n_img else None
+                n = int.from_bytes(_recv_exact(sock, 4), "little")
+                replies.append((img, _recv_exact(sock, n).decode("ascii")))
+    except Exception as e:  # the phase reads it from the replies and fails
+        replies.append(e)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def hold_gradients(what: str, got: dict, want: dict) -> float:
+    """Adam's first moments (0.1 x the gradient each update used) per
+    field, by B2's rules: the largest difference over the field's largest
+    magnitude (B2_TOL), and the median difference relative to each entry
+    with a gradient (B2_MEDIAN_REL_TOL). Returns the largest normalised
+    difference."""
+    worst = 0.0
+    for k in want:
+        w, g = want[k].reshape(-1), got[k].reshape(-1)
+        scale = float(w.abs().max())
+        if scale == 0.0:
+            if g.abs().max() > 0:
+                fail(f"{what}: {k} has a gradient where the single-device step has none")
+            continue
+        d = (g - w).abs()
+        nz = w != 0
+        err, rel = float(d.max()) / scale, float((d[nz] / w[nz].abs()).median())
+        worst = max(worst, err)
+        if err > B2_TOL or rel > B2_MEDIAN_REL_TOL:
+            fail(f"{what}: {k}'s gradient is {err:.3e} of its largest off (median {rel:.3e} of each entry's)")
+    return worst
+
+
+def phase8_scenes(dev, n_cams: int):
+    """Phase 3's serving scene and views, and phase 4's noisy start with the
+    first `n_cams` views' ground truth and cached SSIM moments."""
+    import torch
+
+    from lightgaussian_tpu_torch.models.camera import Camera
+    from lightgaussian_tpu_torch.ops import losses
+    from lightgaussian_tpu_torch.ops.rasterize import render
+    from lightgaussian_tpu_torch.utils.synthetic import random_scene
+
+    serving = random_scene(n=N_GAUSS, seed=0, extent=2.0, scale_range=(0.004, 0.02), device=dev)
+    views = [0.2 + 2.0 * math.pi * i / N_VIEWS for i in range(N_VIEWS)]
+    cams = [Camera.look_at(orbit_eye(t), [0, 0, 0], fovx=0.9, width=WIDTH, height=HEIGHT, device=dev)
+            for t in views]
+    truth = random_scene(n=N_GAUSS, seed=0, extent=2.0, scale_range=(0.004, 0.02), active_sh_degree=3, device=dev)
+    bg = torch.zeros(3, device=dev)
+    batch = []
+    for cam in cams[:n_cams]:
+        with torch.no_grad():
+            gt = render(truth, cam, bg, max_instances=MAX_INSTANCES).render.clamp(0.0, 1.0)
+        batch.append(cam.with_gt(gt).with_gt_ssim_stats(losses.precompute_ssim_target_stats(gt)))
+    rng = np.random.default_rng(1)
+    noisy = {}
+    for k, sd in (("sh_dc", 0.3), ("opacity_logits", 0.5), ("means", 0.01)):
+        v = getattr(truth, k)
+        noisy[k] = v + torch.from_numpy(rng.normal(0.0, sd, tuple(v.shape)).astype(np.float32)).to(dev)
+    return serving, cams, truth.with_params({**truth.params(), **noisy}), batch, bg
+
+
+def _phase8_rank(rank: int, world: int, store: str, tmp: str) -> None:
+    """One rank of phase 8c, a process with its own card: the strip
+    renderer, the two training steps, the GSS sweep and the codebook fit,
+    each against its single-device counterpart on this rank's card. Rank 0
+    writes the numbers for the phase to print; a failed check exits the
+    rank non-zero, and that fails the phase."""
+    import torch
+    import torch.distributed as dist
+
+    from lightgaussian_tpu_torch.compress import vectree, vq
+    from lightgaussian_tpu_torch.config import OptimizationParams
+    from lightgaussian_tpu_torch.data.ply import load_gaussian_ply
+    from lightgaussian_tpu_torch.ops.rasterize import default_max_instances, render
+    from lightgaussian_tpu_torch.parallel import (accumulate_gss_sharded, gather_state, make_gauss_mesh,
+                                                  make_gauss_train_step, make_mesh, make_parallel_train_step,
+                                                  parallel_render, shard_state)
+    from lightgaussian_tpu_torch.parallel.mesh import init_rank
+    from lightgaussian_tpu_torch.train.gss import accumulate_gss
+    from lightgaussian_tpu_torch.train.state import init_train_state
+    from lightgaussian_tpu_torch.train.step import make_train_step
+    from lightgaussian_tpu_torch.utils import threefry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = init_rank(rank, world, store, DEVICE)
+    tmp = Path(tmp)
+    out = {"world": world, "rank": rank}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        return r, 1e3 * (time.perf_counter() - t0)
+
+    def counted(what, fn, want):
+        reset_counts()
+        r, ms = timed(fn)
+        counts = read_counts()
+        want = {k: want.get(k, 0) for k in counts}
+        if counts != want:
+            fail(f"rank {rank}: {what} made launches {counts}, expected {want}")
+        out[what] = {"launches": counts, "ms": ms}
+        return r, ms
+
+    try:
+        serving, cams, start, batch, bg = phase8_scenes(dev, world)
+        mi = default_max_instances(serving)
+
+        # the strip renderer (B6) over the 8 serving views, every rank on `space`
+        mesh = make_mesh(data=1, space=world)
+        with torch.no_grad():
+            parallel_render(serving, cams[:1], bg, mesh=mesh, max_instances=mi)  # warm-up: the groups' first use
+            single, single_ms = timed(lambda: [render(serving, c, bg, max_instances=mi, fast=True).render
+                                              for c in cams])
+        frames, _ = counted("parallel_render", lambda: parallel_render(serving, cams, bg, mesh=mesh, max_instances=mi),
+                            {"blend_forward_fast": N_VIEWS})
+        err = max(float((a - b).abs().max()) for a, b in zip(frames, single))
+        if (world == 1 and err != 0.0) or err > MULTI_TOL:
+            fail(f"rank {rank}: the strip renderer is {err:.3e} off render(fast=True)")
+        out["parallel_render"].update(err=err, single_ms=single_ms)
+        del frames, single
+
+        # the strip step and the Gaussian-sharded step at mesh (world, 1) against the single-device step
+        opt = OptimizationParams()
+        ref_step = make_train_step(opt, 2.0, MAX_INSTANCES, camera_batch=world)
+        one = batch if world > 1 else batch[0]
+        ref_step(init_train_state(start), one, bg)  # warm-up
+        ref, ref_ms = timed(lambda: ref_step(init_train_state(start), one, bg)[0])
+        per_step = {"blend_forward": 1, "blend_backward": 1, "blur3": 1, "blur": 1}
+        strip_step = make_parallel_train_step(opt, 2.0, MAX_INSTANCES, make_mesh(data=world, space=1), HEIGHT)
+        strip_step(init_train_state(start), batch, bg)  # warm-up
+        got, _ = counted("strip step", lambda: strip_step(init_train_state(start), batch, bg)[0], per_step)
+        gmesh = make_gauss_mesh(data=world, gauss=1)
+        gauss_step = make_gauss_train_step(opt, 2.0, MAX_INSTANCES, gmesh, HEIGHT)
+        gauss_step(shard_state(init_train_state(start), gmesh), batch, bg)  # warm-up
+        got_g, _ = counted("gauss step", lambda: gauss_step(shard_state(init_train_state(start), gmesh), batch, bg)[0],
+                           per_step)
+        got_g = gather_state(got_g, gmesh)
+        for what, st in (("strip step", got), ("gauss step", got_g)):
+            out[what]["err"] = hold_gradients(what, st.opt.mu, ref.opt.mu)
+            if not (torch.equal(st.denom, ref.denom) and torch.equal(st.max_radii2d, ref.max_radii2d)):
+                fail(f"rank {rank}: the {what}'s denom or max_radii2d differ from the single-device step's")
+            out[what]["single_ms"] = ref_ms
+        del ref, got, got_g
+
+        # the GSS sweep (B5) over the 8 train views, split over `data`
+        accumulate_gss(serving, cams[:1], bg, mi)  # warm-up
+        (c_seq, i_seq), seq_ms = timed(lambda: accumulate_gss(serving, cams, bg, mi))
+        k = -(-N_VIEWS // world)
+        mine = max(0, min(k, N_VIEWS - rank * k))
+        accumulate_gss_sharded(make_mesh(data=world, space=1), serving, cams[:world], bg, mi)  # warm-up
+        (c_sh, i_sh), _ = counted("gss sweep", lambda: accumulate_gss_sharded(make_mesh(data=world, space=1), serving,
+                                                                             cams, bg, mi), {"blend_count": mine})
+        ratio = float((c_sh - c_seq).abs().sum()) / max(float(c_seq.sum()), 1.0)
+        d_imp = float((i_sh - i_seq).abs().max()) / float(i_seq.abs().max())
+        if ratio > COUNT_RATIO_TOL or d_imp > IMP_REL_TOL_FULL:
+            fail(f"rank {rank}: the sharded sweep is off the sequential one: counts {ratio:.2e}, importance {d_imp:.2e}")
+        out["gss sweep"].update(count_ratio=ratio, imp_rel=d_imp, single_ms=seq_ms)
+
+        # the sharded codebook fit on phase 7's features (the distilled model and its scores)
+        out_c = tmp / "distill6"
+        feats = vectree.scene_to_feature_matrix(
+            load_gaussian_ply(out_c / "point_cloud" / f"iteration_{DISTILL_TO}" / "point_cloud.ply", device=dev))
+        imp = np.load(out_c / "imp_score.npz")["arr_0"]
+        cfg = vectree.VQConfig(sh_degree=DISTILL_SH, codebook_size=VQ_CODEBOOK, iterations=VQ8_ITERATIONS)
+        (res, q), fit_ms = counted("codebook fit", lambda: vectree.quantize_features(
+            feats, imp, cfg, device=dev, mesh=make_mesh(data=world, space=1)), {})
+        _, single_fit_ms = timed(lambda: vectree.quantize_features(feats, imp, cfg, device=dev))
+        sh = slice(6, 6 + cfg.sh_dim)
+        rows = feats[~res.non_vq_mask, sh]
+        err = float(np.mean((q[~res.non_vq_mask, sh] - rows) ** 2))
+        rand = threefry.normal(threefry.prng_key(9), (cfg.codebook_size, cfg.sh_dim), device=dev)
+        q_rand, _ = vq.quantize_with_fp16_codebook(torch.from_numpy(np.ascontiguousarray(rows)).to(dev), rand)
+        err_rand = float(np.mean((q_rand.cpu().numpy() - rows) ** 2))
+        if not err < VQ_RANDOM_SHARE * err_rand:
+            fail(f"rank {rank}: the sharded fit's SH error {err:.4e} is not under {VQ_RANDOM_SHARE} of a random "
+                 f"codebook's {err_rand:.4e}")
+        out["codebook fit"].update(err=err, err_rand=err_rand, rows=int(rows.shape[0]), single_ms=single_fit_ms)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        (tmp / "phase8_rank0.json").write_text(json.dumps(out))
+
+
+def phase8(s: Smoke, tmp: Path, p4: dict) -> dict:
+    """The live viewer, camera-batched training and the multi-device paths
+    at full width on phases 4 to 7; returns each path's launch counts."""
+    import csv
+    import threading
+
+    import torch.multiprocessing as mp
+
+    from lightgaussian_tpu_torch.cli import train_densify_prune
+    from lightgaussian_tpu_torch.config import OptimizationParams
+    from lightgaussian_tpu_torch.data.ply import load_gaussian_ply
+    from lightgaussian_tpu_torch.models.camera import Camera
+    from lightgaussian_tpu_torch.ops.rasterize import default_max_instances, render
+    from lightgaussian_tpu_torch.render.network_gui import NetworkGUI, camera_from_message, image_to_bytes
+    from lightgaussian_tpu_torch.train import optim
+    from lightgaussian_tpu_torch.train.state import init_train_state
+    from lightgaussian_tpu_torch.train.step import make_train_step
+
+    torch = s.torch
+    dev = s.dev
+    paths = {}
+    src5, model5 = tmp / "src5", tmp / "model5"
+    bg = torch.zeros(3, device=dev)
+
+    # 8a: the viewer's poll over a localhost socket, on phase 5's model and its first train view
+    model = load_gaussian_ply(model5 / "point_cloud" / f"iteration_{CLI_RESUME_TO}" / "point_cloud.ply", device=dev)
+    mi = default_max_instances(model)
+    view = Camera.look_at(orbit_eye(0.2), [0, 0, 0], fovx=0.9, width=WIDTH, height=HEIGHT, device=dev)
+    zero = {**viewer_message(view, 1.0, False), "resolution_x": 0, "resolution_y": 0}
+    requests = [viewer_message(view, VIEWER_SCALES[0], False), zero, viewer_message(view, VIEWER_SCALES[1], True)]
+
+    def frame(cam, scale):
+        with torch.no_grad():
+            return render(model, cam, bg, scale_modifier=scale, max_instances=mi, fast=True).render
+
+    gui = NetworkGUI(device=dev)
+    gui.init("127.0.0.1", 0)
+    replies, connected = [], threading.Event()
+    client = threading.Thread(target=viewer_client, daemon=True,
+                              args=(gui.listener.getsockname()[1], requests, replies, connected))
+    client.start()
+    connected.wait(timeout=60)  # the poll accepts a connection that is already waiting
+    reset_counts()
+    t0 = time.perf_counter()
+    gui.poll(frame, str(src5), training_done=False)
+    s.sync()
+    poll_ms = 1e3 * (time.perf_counter() - t0)
+    paths["viewer poll"] = read_counts()
+    client.join(timeout=120)
+    gui.close()
+    if len(replies) != 3 or any(isinstance(r, Exception) for r in replies):
+        fail(f"the viewer client got {replies!r:.300}")
+    if replies[1][0] is not None or any(r[1] != str(src5) for r in replies):
+        fail("the viewer's replies carry a frame at zero resolution or another verify string")
+    for (img, _), msg in ((replies[0], requests[0]), (replies[2], requests[2])):
+        want = image_to_bytes(frame(camera_from_message(msg, dev), msg["scaling_modifier"]))
+        if img != want:
+            fail(f"the frame at scale {msg['scaling_modifier']} is not image_to_bytes(render(..., fast=True))")
+    if replies[0][0] == replies[2][0]:
+        fail("the frames at scales 1.0 and 0.5 are the same")
+    _launches_of(s, f"the viewer's poll (frames at scales {VIEWER_SCALES}, one request at zero resolution)",
+                 paths["viewer poll"], {"blend_forward_fast": 2})
+    s.say(f"  viewer: 3 requests answered in {poll_ms:.1f} ms (two {WIDTH}x{HEIGHT} frames, render, copy to the "
+          f"host and {3 * WIDTH * HEIGHT} bytes each over localhost), byte for byte the render's")
+
+    # 8b: the camera-batched step on phase 4's start against one Adam update on the mean of the per-camera gradients
+    start, cams = p4["start"], p4["cams"][:CAMERA_BATCH]
+    opt = OptimizationParams()
+    batched = make_train_step(opt, 2.0, MAX_INSTANCES, camera_batch=CAMERA_BATCH)
+    single = make_train_step(opt, 2.0, MAX_INSTANCES)
+    state0 = init_train_state(start)
+    reset_counts()
+    got, m = batched(state0, cams, bg)
+    s.sync()
+    paths["batched step"] = read_counts()
+    _launches_of(s, f"the camera-batched step (B={CAMERA_BATCH})", paths["batched step"],
+                 {k: CAMERA_BATCH for k in ("blend_forward", "blend_backward", "blur3", "blur")})
+    singles = [single(state0, c, bg)[0] for c in cams]
+    mean_mu = {k: sum(st.opt.mu[k] for st in singles) / CAMERA_BATCH for k in state0.opt.mu}
+    err = hold_gradients("the camera-batched step", got.opt.mu, mean_mu)
+    lr_fns = optim.make_lr_fns(opt, 2.0)
+    lr = {k: float(f(0)) for k, f in lr_fns.items()}
+    want, _ = optim.adam_update(state0.scene.params(), {k: v / (1 - optim.BETA1) for k, v in mean_mu.items()},
+                                state0.opt, lr_fns, state0.step, state0.scene.alive, 1.0)
+    for k, v in want.items():
+        g = mean_mu[k].abs()
+        strong = g > 1e-3 * g.max()
+        d = (got.scene.params()[k] - v).abs()
+        if strong.any() and float(d[strong].max()) > 1e-3 * lr[k]:
+            fail(f"the camera-batched step's {k} is {float(d[strong].max()):.3e} off one Adam update on the mean "
+                 f"gradient where the gradient is strong (lr {lr[k]:.3e})")
+    denom = sum(st.denom for st in singles)
+    radii = torch.stack([st.max_radii2d for st in singles]).amax(dim=0)
+    if not (torch.equal(got.denom, denom) and torch.equal(got.max_radii2d, radii)):
+        fail("the camera-batched step's denom or max_radii2d are not the single steps' sum and maximum")
+    times = {"batched": [], "singles": []}
+    for _ in range(BATCH_STEP_REPS):
+        s.sync()
+        t0 = time.perf_counter()
+        batched(state0, cams, bg)
+        s.sync()
+        times["batched"].append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        for c in cams:
+            single(state0, c, bg)
+        s.sync()
+        times["singles"].append(1e3 * (time.perf_counter() - t0))
+    s.say(f"  camera-batched step B={CAMERA_BATCH} at {WIDTH}x{HEIGHT}, {N_GAUSS} Gaussians SH 3: Adam's first moment "
+          f"{err:.3e} of each field's largest off the mean of the {CAMERA_BATCH} single-camera gradients "
+          f"(atol {B2_TOL:.0e}); loss {float(m.loss):.5f}; median {statistics.median(times['batched']):.3f} ms "
+          f"against {statistics.median(times['singles']):.3f} ms for {CAMERA_BATCH} single steps "
+          f"({BATCH_STEP_REPS} of each, in turns)")
+    del got, singles, want
+
+    # 8b/8a: the trainer CLI with --camera_batch and the viewer on, a client served through it
+    port = free_port()
+    replies = []
+    client = threading.Thread(target=viewer_client, args=(port, [viewer_message(view, 1.0, True)], replies),
+                              daemon=True)
+    client.start()
+    out = tmp / "batch8"
+    n_eval = len(BATCH_CLI_TEST_AT) * (N_TEST_VIEWS + min(REPORT_TRAIN_VIEWS, N_VIEWS))
+    never = str(10 * BATCH_CLI_ITERATIONS)
+    reset_counts()
+    text, wall = _called(train_densify_prune.main, [
+        "-s", str(src5), "-m", str(out), "--eval", "-r", "1", "--quiet", "--device", DEVICE, "--port", str(port),
+        "--camera_batch", str(CAMERA_BATCH), "--iterations", str(BATCH_CLI_ITERATIONS),
+        "--densify_until_iter", "0", "--opacity_reset_interval", never, "--prune_iterations", never,
+        "--test_iterations", *map(str, BATCH_CLI_TEST_AT), "--save_iterations", never,
+        "--checkpoint_iterations", never, "--position_lr_max_steps", str(BATCH_CLI_ITERATIONS)])
+    s.sync()
+    paths["train_densify_prune --camera_batch"] = read_counts()
+    client.join(timeout=120)
+    steps = CAMERA_BATCH * BATCH_CLI_ITERATIONS
+    _launches_of(s, f"train_densify_prune --camera_batch {CAMERA_BATCH}, {BATCH_CLI_ITERATIONS} iterations, the "
+                    f"viewer served once", paths["train_densify_prune --camera_batch"],
+                 {"blend_forward": steps + n_eval, "blend_backward": steps, "blur3": steps, "blur": steps + N_VIEWS,
+                  "blur5": n_eval, "blend_forward_fast": 1})
+    if len(replies) != 1 or isinstance(replies[0], Exception) or replies[0][1] != str(src5) or "Connected by" not in text:
+        fail(f"the trainer's viewer did not serve the client: {replies!r:.300}")
+    rows = [r for r in csv.DictReader(open(out / "metric.csv")) if r["set"] == "test"]
+    l1 = [float(r["l1_loss"]) for r in rows]
+    if [int(r["iteration"]) for r in rows] != list(BATCH_CLI_TEST_AT) or not l1[-1] < l1[0]:
+        fail(f"the batched trainer's test L1 {l1} at {[r['iteration'] for r in rows]} did not fall")
+    s.say(f"  trainer CLI --camera_batch {CAMERA_BATCH}: {BATCH_CLI_ITERATIONS} optimizer steps ({steps} views) in "
+          f"{wall:.2f} s wall incl. loading and {len(BATCH_CLI_TEST_AT)} reports; test L1 {l1[0]:.5f} -> {l1[-1]:.5f}; "
+          f"one {WIDTH}x{HEIGHT} frame served to a viewer during the run")
+
+    # 8c: the multi-device paths, one process per card under NCCL
+    import torch.distributed  # noqa: F401 (the ranks' backend must exist here too)
+
+    world = torch.cuda.device_count()
+    mp.spawn(_phase8_rank, args=(world, str(tmp / "store8"), str(tmp)), nprocs=world, join=True)
+    r0 = json.loads((tmp / "phase8_rank0.json").read_text())
+    for what in ("parallel_render", "strip step", "gauss step", "gss sweep", "codebook fit"):
+        paths[f"{what} (rank 0 of {world})"] = r0[what]["launches"]
+    pr, st, gs, sw, cb = (r0[k] for k in ("parallel_render", "strip step", "gauss step", "gss sweep", "codebook fit"))
+    s.say(f"  multi-device, {world} rank(s) under {'NCCL' if DEVICE == 'cuda' else 'gloo'}, rank 0: strip renderer {N_VIEWS} views {pr['ms']:.2f} ms "
+          f"(render(fast=True) {pr['single_ms']:.2f} ms; largest difference {pr['err']:.3e}); strip step "
+          f"{st['ms']:.2f} ms, Gaussian-sharded step {gs['ms']:.2f} ms (single-device step {st['single_ms']:.2f} ms; "
+          f"Adam's first moment {st['err']:.3e} and {gs['err']:.3e} of the largest off); GSS sweep {sw['ms']:.2f} ms "
+          f"(sequential {sw['single_ms']:.2f} ms; counts {sw['count_ratio']:.2e}, importance {sw['imp_rel']:.2e}); "
+          f"codebook fit + assignment, {VQ8_ITERATIONS} iterations, {cb['ms']:.1f} ms (one device {cb['single_ms']:.1f} "
+          f"ms; SH error {cb['err']:.4e} against a random codebook's {cb['err_rand']:.4e} on {cb['rows']} rows)")
+    print("phase 8 ok", flush=True)
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -2031,6 +2500,7 @@ def main() -> int:
         trainer_counts = timed(5, phase5, tmp)
         cli_paths = timed(6, phase6, tmp)
         cli_paths.update(timed(7, phase7, tmp))
+        cli_paths.update(timed(8, phase8, tmp, counts))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # launches on each kernel's path: the render CLI (B6), the training steps (B1-B4), the eval render

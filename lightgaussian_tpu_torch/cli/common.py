@@ -11,10 +11,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import sys
 from pathlib import Path
 from typing import get_type_hints
 
 import torch
+import torch.distributed as dist
 
 from lightgaussian_tpu_torch.config import ModelParams, OptimizationParams, PipelineParams
 
@@ -95,3 +98,37 @@ def get_combined_args(parser: argparse.ArgumentParser, argv=None) -> argparse.Na
             if hasattr(args, k) and getattr(args, k) == getattr(defaults, k, None):
                 setattr(args, k, v)
     return args
+
+
+def refuse_world_size(name: str) -> None:
+    """Trainers run in one process: under torchrun with WORLD_SIZE > 1,
+    each process would train its own replica, and the replicas would drift
+    apart (the blend backward adds in a varying order)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        raise SystemExit(
+            f"{name} trains in one process (WORLD_SIZE={world}); run it without torchrun. "
+            "The multi-device paths are render_sets, render_video and save_imp_score under torchrun, "
+            "and the library's parallel/ steps."
+        )
+
+
+def init_distributed(device: torch.device) -> torch.device:
+    """Join torchrun's process group when WORLD_SIZE > 1 (this process on
+    `cuda:LOCAL_RANK` for a card) and keep every rank but 0 quiet; nothing
+    otherwise. Returns the device this process works on."""
+    from lightgaussian_tpu_torch.parallel.mesh import init_from_env
+
+    device = init_from_env(device)
+    if dist.is_initialized() and dist.get_rank() != 0:
+        sys.stdout = open(os.devnull, "w")
+    return device
+
+
+def leave_distributed() -> None:
+    """At the end of a CLI's work under torchrun: wait for every rank (rank
+    0 may still be writing files) and leave the group, so that no process
+    exits with the group's threads still running."""
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()

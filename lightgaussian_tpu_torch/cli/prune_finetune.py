@@ -57,6 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    common.refuse_world_size("prune_finetune")
     common.apply_debug_flags(args)
     model, pipeline = common.extract_standard(args)
     opt = common.extract_dataclass(args, OptimizationParams)

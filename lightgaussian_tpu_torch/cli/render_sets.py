@@ -4,7 +4,10 @@ Port of `lightgaussian_tpu/cli/render_sets.py`, the serving path: the same
 flags (`--iteration -1` = latest, `--skip_train/--skip_test`, `--new_sh` for
 SH-truncating loads, `--load_vq` for the iteration's `extreme_saving/`
 bundle) without `--interpret`, plus `--device` (default cuda; without CUDA
-that raises unless `--device cpu` is given).
+that raises unless `--device cpu` is given). Under torchrun
+(`torchrun --nproc_per_node=N -m lightgaussian_tpu_torch.cli.render_sets
+...`) the frames are rendered in strips over the N processes, one card
+each, and rank 0 writes them.
 
 Usage: python -m lightgaussian_tpu_torch.cli.render_sets -s <scene> -m <model_dir> [--device cpu]
 """
@@ -38,7 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     args = common.get_combined_args(build_parser(), argv)
     model, _pipeline = common.extract_standard(args)
-    device = resolve_device(args.device)
+    device = common.init_distributed(resolve_device(args.device))
     # Full float32 in any matrix product on the card.
     torch.backends.cuda.matmul.allow_tf32 = False
     safe_state(args.quiet)
@@ -64,6 +67,7 @@ def main(argv=None) -> None:
             model.model_path, "test", scene.loaded_iter, scene.getTestCameras(),
             scene.gaussians, bg, max_instances,
         )
+    common.leave_distributed()
 
 
 if __name__ == "__main__":

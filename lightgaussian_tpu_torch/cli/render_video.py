@@ -9,6 +9,8 @@ binning while the measured splat drift stays under `--drift_px`, for at most
 `--rebin_every` frames. The flags are the JAX CLI's without `--interpret`,
 plus `--device` (default cuda; without CUDA that raises unless `--device
 cpu` is given); `--load_vq` renders the iteration's `extreme_saving/` bundle.
+Under torchrun every frame is rendered fresh in strips over the processes
+(one card each), and rank 0 writes the files.
 
 Usage: python -m lightgaussian_tpu_torch.cli.render_video -s <scene> -m <model_dir> --video [--device cpu]
 """
@@ -19,6 +21,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lightgaussian_tpu_torch.cli import common
 from lightgaussian_tpu_torch.data.scene import Scene
@@ -67,7 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     args = common.get_combined_args(build_parser(), argv)
     model, _pipeline = common.extract_standard(args)
-    device = resolve_device(args.device)
+    device = common.init_distributed(resolve_device(args.device))
     # Full float32 in any matrix product on the card.
     torch.backends.cuda.matmul.allow_tf32 = False
     safe_state(args.quiet)
@@ -94,7 +97,7 @@ def main(argv=None) -> None:
                 n_frames=args.n_frames, radius=args.radius, rebin_every=args.rebin_every,
                 drift_px=args.drift_px,
             )
-    if args.gaussians:
+    if args.gaussians and not (dist.is_initialized() and dist.get_rank() != 0):
         # perturbed-pose frames around the first train views
         rng = np.random.default_rng(0)
         base = Path(model.model_path) / "perturbed" / f"ours_{scene.loaded_iter}"
@@ -102,6 +105,7 @@ def main(argv=None) -> None:
             cam = pose_gen.gaussian_pose(cams[idx % len(cams)], rng, mean=args.mean, std_translation=args.std)
             img = render(scene.gaussians, cam, bg, max_instances=max_instances).render
             render_sets.save_png(img, base / f"{idx:05d}.png")
+    common.leave_distributed()
 
 
 if __name__ == "__main__":

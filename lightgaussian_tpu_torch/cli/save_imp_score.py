@@ -10,7 +10,8 @@ reference. `--show_imp_score` prints the scores' percentiles; `--get_fps`
 times a render-only sweep of the train views (one warm-up render, then the
 sweep between two synchronisations). The flags are the JAX CLI's without
 `--interpret`, plus `--device` (default cuda; without CUDA that raises
-unless `--device cpu` is given).
+unless `--device cpu` is given). Under torchrun the cameras are split over
+the processes (one card each) and rank 0 writes the file and prints.
 
 Usage: python -m lightgaussian_tpu_torch.cli.save_imp_score -s <scene> -m <model> --start_checkpoint <chkpnt.npz>
 """
@@ -22,6 +23,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lightgaussian_tpu_torch.cli import common
 from lightgaussian_tpu_torch.data.scene import Scene
@@ -48,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     model, _pipeline = common.extract_standard(args)
-    device = resolve_device(args.device)
+    device = common.init_distributed(resolve_device(args.device))
     # Full float32 in any matrix product on the card.
     torch.backends.cuda.matmul.allow_tf32 = False
     safe_state(args.quiet)
@@ -70,8 +72,10 @@ def main(argv=None) -> None:
     print(f"live instances per train camera (cut {max_instances}): {live}; {over} above the cut")
     v_imp = gss.calculate_v_imp_score(state.scene, imp, args.v_pow)
     out = Path(model.model_path) / "imp_score.npz"
-    loop.save_imp_score(out, state.scene, v_imp)
-    print(f"Saved {out}")
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    if rank0:
+        loop.save_imp_score(out, state.scene, v_imp)
+        print(f"Saved {out}")
 
     if args.show_imp_score:
         alive = state.scene.alive
@@ -82,7 +86,7 @@ def main(argv=None) -> None:
             f"p10 {qs[1]:.4g} median {qs[2]:.4g} p90 {qs[3]:.4g} max {qs[4]:.4g}"
         )
 
-    if args.get_fps:
+    if args.get_fps and rank0:
         def sync():
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -95,6 +99,7 @@ def main(argv=None) -> None:
         sync()
         dt = time.perf_counter() - t0
         print(f"render FPS over {len(cams)} train views: {len(cams) / dt:.1f}")
+    common.leave_distributed()
 
 
 if __name__ == "__main__":

@@ -6,9 +6,10 @@ export at the last checkpoint), plus `--device` (default cuda; without CUDA
 that raises unless `--device cpu` is given). `--debug_nans` turns on
 `torch.autograd.set_detect_anomaly`; `--profile_dir` records a
 `torch.profiler` trace of a few steps. `--interpret` has no counterpart.
-The live viewer is not ported yet: `--ip`, `--port` and `--disable_viewer`
-parse, and a run without `--disable_viewer` says so in one line and trains
-on.
+Unless `--disable_viewer`, the live viewer listens on `--ip:--port` (a port
+that is taken is said in one line, and training goes on without it).
+`--camera_batch N` makes one Adam update over N cameras an iteration.
+One process trains: under torchrun with WORLD_SIZE > 1 the CLI refuses.
 
 Usage: python -m lightgaussian_tpu_torch.cli.train_densify_prune -s <scene> -m <out> [--device cpu]
 """
@@ -21,6 +22,7 @@ import torch
 from lightgaussian_tpu_torch.cli import common
 from lightgaussian_tpu_torch.config import OptimizationParams, TrainConfig
 from lightgaussian_tpu_torch.data.scene import Scene
+from lightgaussian_tpu_torch.render.network_gui import NetworkGUI
 from lightgaussian_tpu_torch.train import loop
 from lightgaussian_tpu_torch.train.checkpoint import load_checkpoint
 from lightgaussian_tpu_torch.utils.device import resolve_device
@@ -49,8 +51,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--profile_start", type=int, default=100)
     parser.add_argument("--profile_steps", type=int, default=5)
     parser.add_argument("--camera_batch", type=int, default=1,
-                        help="cameras per optimizer step (1 = as the reference trains; "
-                             ">1 comes with the multi-device slice and raises)")
+                        help="cameras per optimizer step (1 = as the reference trains)")
     common.add_device_flag(parser)
     common.add_debug_nans_flag(parser)
     common.add_cache_gt_ssim_flag(parser)
@@ -59,6 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    common.refuse_world_size("train_densify_prune")
     common.apply_debug_flags(args)
     model, pipeline = common.extract_standard(args)
     opt = common.extract_dataclass(args, OptimizationParams)
@@ -93,8 +95,14 @@ def main(argv=None) -> None:
         state, first_iter, _ = load_checkpoint(cfg.start_checkpoint, device=device)
         print(f"Resumed from {cfg.start_checkpoint} at iteration {first_iter}")
 
+    gui = None
     if not args.disable_viewer:
-        print(f"[viewer] the live viewer is not ported yet; nothing listens on {args.ip}:{args.port}")
+        gui = NetworkGUI(device=device)
+        try:
+            gui.init(args.ip, args.port)
+        except OSError as e:
+            print(f"[viewer] listener unavailable on {args.ip}:{args.port} ({e})")
+            gui = None
 
     callbacks = None
     if args.profile_dir:
@@ -109,7 +117,10 @@ def main(argv=None) -> None:
         scene, cfg, bg, state=state, first_iter=first_iter, callbacks=callbacks,
         densify=True, logger=logger, seed=args.seed,
         camera_batch=args.camera_batch, cache_gt_ssim=args.cache_gt_ssim,
+        gui=gui, gui_source_path=str(model.source_path),
     )
+    if gui is not None:
+        gui.close()
     logger.close()
     print("\nTraining complete.")
 

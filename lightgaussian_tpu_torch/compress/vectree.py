@@ -120,10 +120,13 @@ def quantize_features(
     cfg: VQConfig,
     seed: int = 0,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> tuple[QuantizationResult, np.ndarray]:
     """The top (1 - vq_ratio) by importance are kept raw; a codebook is fit
     to the rest's SH features with importance-weighted EMA and k_expire on
     `device`; every row is then assigned in the fp16-rounded codebook.
+    With a `mesh` (`parallel.make_mesh`) the fit is split over its data
+    axis (`vq.train_codebook_sharded`); every rank passes the same inputs.
 
     Returns (result, the quantized full feature matrix)."""
     dev = resolve_device(device)
@@ -150,8 +153,12 @@ def quantize_features(
 
     init_key, train_key = threefry.split(threefry.prng_key(seed))
     state = vq_mod.init_codebook(init_key, cfg.codebook_size, cfg.sh_dim, feats=sh_vq, device=dev)
-    state = vq_mod.train_codebook(train_key, state, sh_vq, imp_vq, iterations=cfg.iterations,
-                                  chunk=cfg.chunk, k_expire=cfg.k_expire)
+    if mesh is not None:
+        state = vq_mod.train_codebook_sharded(mesh, train_key, state, sh_vq, imp_vq, iterations=cfg.iterations,
+                                              chunk=cfg.chunk, k_expire=cfg.k_expire)
+    else:
+        state = vq_mod.train_codebook(train_key, state, sh_vq, imp_vq, iterations=cfg.iterations,
+                                      chunk=cfg.chunk, k_expire=cfg.k_expire)
     quant_sh, idx_all = vq_mod.quantize_with_fp16_codebook(
         torch.from_numpy(np.ascontiguousarray(sh, np.float32)).to(dev), state.embed)
     quant_sh = quant_sh.cpu().numpy()
@@ -237,9 +244,11 @@ def quantize_scene(
     save_path: str | Path,
     cfg: VQConfig | None = None,
     seed: int = 0,
+    mesh=None,
 ):
     """Scene -> VQ on the scene's device -> `extreme_saving` bundle; returns
-    (result, the bundle loaded back as a scene).
+    (result, the bundle loaded back as a scene). `mesh` splits the fit as
+    in `quantize_features`.
 
     `importance` is indexed over alive rows (what imp_score.npz stores) or
     over the scene's capacity; any other length comes from another scene
@@ -255,6 +264,6 @@ def quantize_scene(
                 f"capacity ({scene.capacity}); the scores were saved from a different checkpoint than input_path")
         imp = imp[scene.alive.cpu().numpy()]
     device = scene.means.device
-    result, _ = quantize_features(feats, imp, cfg, seed=seed, device=device)
+    result, _ = quantize_features(feats, imp, cfg, seed=seed, device=device, mesh=mesh)
     result.size_mb = save_extreme(save_path, feats, result, cfg)
     return result, load_vq_scene(Path(save_path) / "extreme_saving", device=device)

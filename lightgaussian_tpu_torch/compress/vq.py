@@ -21,6 +21,9 @@ one, unit weights under `--no_IS`), so both top-k choices are stable sorts.
 
 The fit records stage marks (`utils/stage_marks.py`): "draw" after each
 block of index draws, "nearest code" and "EMA + expire" in each step.
+
+`train_codebook_sharded` splits the fit over a mesh axis, one process per
+rank (`parallel/`); draw for draw it is the JAX package's sharded fit.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import dataclasses
 
 import torch
 
+from lightgaussian_tpu_torch.parallel import comm
 from lightgaussian_tpu_torch.utils import stage_marks
 from lightgaussian_tpu_torch.utils import threefry
 
@@ -78,7 +82,13 @@ def _top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(x, descending=True, stable=True).indices[:k]
 
 
-def _ema_step(state: CodebookState, chunk: torch.Tensor, weight: torch.Tensor, k_expire: int) -> CodebookState:
+def _ema_step(state: CodebookState, chunk: torch.Tensor, weight: torch.Tensor, k_expire: int,
+              mesh=None, axis: str = "data") -> CodebookState:
+    """One weighted EMA step on `chunk`, then the expiry. With a `mesh`,
+    the chunk is this rank's share: the cluster statistics are summed over
+    `axis`, and the expiry's candidates are the best `k_expire` of every
+    rank's own best (gathered in rank order), so the codebook stays the
+    same on every rank."""
     k_codes = state.embed.shape[0]
     wsum = weight.sum()
     w = torch.where(wsum > 0.0, weight * (weight.numel() / torch.clamp(wsum, min=1e-12)), 1.0)
@@ -87,6 +97,9 @@ def _ema_step(state: CodebookState, chunk: torch.Tensor, weight: torch.Tensor, k
     stage_marks.mark("nearest code")
     cluster_batch = torch.zeros(k_codes, dtype=torch.float32, device=chunk.device).index_add_(0, idx, w)
     embed_sum = torch.zeros_like(state.embed).index_add_(0, idx, chunk * w[:, None])
+    if mesh is not None:
+        cluster_batch = comm.psum(cluster_batch, mesh, axis)
+        embed_sum = comm.psum(embed_sum, mesh, axis)
 
     cluster_size = state.cluster_size * DECAY + cluster_batch * (1.0 - DECAY)
     embed_avg = state.embed_avg * DECAY + embed_sum * (1.0 - DECAY)
@@ -96,7 +109,11 @@ def _ema_step(state: CodebookState, chunk: torch.Tensor, weight: torch.Tensor, k
 
     if k_expire > 0:
         dead = _top_k_indices(-cluster_size, k_expire)
-        cand = chunk[_top_k_indices(w, k_expire)]
+        important = _top_k_indices(w, k_expire)
+        cand = chunk[important]
+        if mesh is not None:
+            wk = comm.all_gather(w[important], mesh, axis)
+            cand = comm.all_gather(cand, mesh, axis)[_top_k_indices(wk, k_expire)]
         c0 = torch.clamp(n / k_codes, min=1.0)
         embed[dead] = cand
         embed_avg[dead] = cand * c0
@@ -114,6 +131,21 @@ def sample_keys(key: tuple[int, int], iterations: int) -> list[tuple[int, int]]:
     return subs
 
 
+def _fit(key, state: CodebookState, feats: torch.Tensor, importance: torch.Tensor, iterations: int,
+         chunk: int, k_expire: int, mesh=None, axis: str = "data") -> CodebookState:
+    """The loop of `train_codebook` and `train_codebook_sharded`: the chunk
+    indices of a block of iterations are drawn in one pass."""
+    k_expire = min(k_expire, state.embed.shape[0])
+    subs = sample_keys(key, iterations)
+    block = max(1, DRAW_BLOCK // chunk)
+    for start in range(0, iterations, block):
+        rows = threefry.randint_rows(subs[start:start + block], chunk, 0, feats.shape[0], device=feats.device)
+        stage_marks.mark("draw")
+        for idx in rows:
+            state = _ema_step(state, feats[idx], importance[idx], k_expire, mesh, axis)
+    return state
+
+
 def train_codebook(
     key: tuple[int, int],
     state: CodebookState,
@@ -123,23 +155,42 @@ def train_codebook(
     chunk: int = 80_000,
     k_expire: int = 10,
 ) -> CodebookState:
-    """`iterations` x (sample a chunk, weighted EMA step, expire). The
-    chunk indices of a block of iterations are drawn in one pass."""
-    k_expire = min(k_expire, state.embed.shape[0])
-    subs = sample_keys(key, iterations)
-    block = max(1, DRAW_BLOCK // chunk)
-    for start in range(0, iterations, block):
-        rows = threefry.randint_rows(subs[start:start + block], chunk, 0, feats.shape[0], device=feats.device)
-        stage_marks.mark("draw")
-        for idx in rows:
-            state = _ema_step(state, feats[idx], importance[idx], k_expire)
-    return state
+    """`iterations` x (sample a chunk, weighted EMA step, expire)."""
+    return _fit(key, state, feats, importance, iterations, chunk, k_expire)
 
 
-def train_codebook_sharded(*args, **kwargs):
-    """The data-sharded fit of the JAX package waits for the multi-device
-    slice."""
-    raise NotImplementedError("train_codebook_sharded needs the multi-device slice (ROADMAP.md, queue A, A10)")
+def shard_rows(x: torch.Tensor, n: int, r: int) -> torch.Tensor:
+    """Shard r of n contiguous shards of `x`'s rows, `x` padded first to a
+    multiple of n by repeating its leading rows. Repeated rows are real
+    data: zero rows would carry importance 0, and a chunk drawn all from
+    them would fall back to unit weights and pull codes toward zero."""
+    pad = (-x.shape[0]) % n
+    if pad:
+        x = torch.cat([x, x[torch.arange(pad, device=x.device) % x.shape[0]]])
+    per = x.shape[0] // n
+    return x[r * per:(r + 1) * per]
+
+
+def train_codebook_sharded(
+    mesh,
+    key: tuple[int, int],
+    state: CodebookState,
+    feats: torch.Tensor,
+    importance: torch.Tensor,
+    iterations: int = 1000,
+    chunk: int = 80_000,
+    k_expire: int = 10,
+    axis: str = "data",
+) -> CodebookState:
+    """The fit split over `mesh`'s `axis`, one process per rank: rank r
+    draws chunk // n indices a step from its shard of the rows, with key
+    `threefry.split(key, n)[r]`, and the cluster statistics are summed over
+    the axis. Every rank passes the same `state`, `feats` and `importance`
+    and returns the same codebook."""
+    n = comm.axis_size(mesh, axis)
+    r = comm.axis_index(mesh, axis)
+    return _fit(threefry.split(key, n)[r], state, shard_rows(feats, n, r), shard_rows(importance, n, r),
+                iterations, max(1, chunk // n), k_expire, mesh, axis)
 
 
 def quantize_with_fp16_codebook(feats: torch.Tensor, embed: torch.Tensor):

@@ -7,6 +7,11 @@ x_cam = world_view @ x_world; clip = full_proj @ x_world.
 
 The FoV tangents are 0-d float32 tensors, so focal lengths derived from them
 are float32 as in the JAX package.
+
+A camera batch (camera-batched training, the multi-device paths) is a plain
+`list[Camera]` of one resolution, where the JAX package stacks the cameras
+into one pytree; `stack_cameras` checks such a list, and the batched
+steps call it on the list they are given.
 """
 from __future__ import annotations
 
@@ -160,3 +165,11 @@ class Camera:
         if fovy is None:
             fovy = 2.0 * math.atan(math.tan(fovx / 2.0) * height / width)
         return cls.from_Rt(Rwc.T, t, fovx, fovy, width, height, device=device)
+
+
+def stack_cameras(cams) -> list[Camera]:
+    """The cameras as a batch (a list); they must share one resolution."""
+    cams = list(cams)
+    if len({(c.width, c.height) for c in cams}) > 1:
+        raise ValueError("a camera batch takes one resolution; got mixed resolutions")
+    return cams

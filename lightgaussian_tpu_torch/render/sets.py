@@ -3,8 +3,10 @@
 Port of `lightgaussian_tpu/render/sets.py`: train/test stills into
 `{renders,gt}/` for the metrics tools, and trajectory frames (ellipse,
 circular, spherical, spherify, spiral) with cached-binning reuse between
-keyframes, gated on measured splat drift. Single device; the multi-device
-strip renderer comes with a later slice.
+keyframes, gated on measured splat drift. When a process group of more
+than one process runs (torchrun), stills and trajectory frames go through
+the strip renderer (`parallel.render`, every process on the ``space``
+axis; each trajectory frame fresh), and only rank 0 writes files.
 """
 from __future__ import annotations
 
@@ -12,12 +14,15 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lightgaussian_tpu_torch.models.camera import Camera
 from lightgaussian_tpu_torch.models.gaussians import GaussianScene
 from lightgaussian_tpu_torch.ops.rasterize import build_binning, render
 from lightgaussian_tpu_torch.ops.rasterize.binning import snug_capacity
 from lightgaussian_tpu_torch.ops.rasterize.projection import NEAR_PLANE
+from lightgaussian_tpu_torch.parallel import parallel_render
+from lightgaussian_tpu_torch.parallel.mesh import is_multi_process
 from lightgaussian_tpu_torch.render import poses as pose_gen
 from lightgaussian_tpu_torch.utils import image_io
 
@@ -43,8 +48,16 @@ def render_set(
     the exact one is below PNG quantization) and write renders/ and gt/ PNGs
     under `<model_path>/<name>/ours_<iteration>/`."""
     base = Path(model_path) / name / f"ours_{iteration}"
-    for idx, cam in enumerate(cameras):
-        img = render(scene, cam, bg, max_instances=max_instances, fast=True).render
+    multi = is_multi_process()
+    images = None
+    if multi and cameras and len({(c.width, c.height) for c in cameras}) == 1:
+        images = parallel_render(scene, cameras, bg, max_instances=max_instances)  # every rank takes part
+    if multi and dist.get_rank() != 0:
+        return base
+    if images is None:
+        # one process; under torchrun, rank 0 alone renders a set of mixed resolutions
+        images = (render(scene, cam, bg, max_instances=max_instances, fast=True).render for cam in cameras)
+    for idx, (img, cam) in enumerate(zip(images, cameras)):
         save_png(img, base / "renders" / f"{idx:05d}.png")
         if cam.gt_image is not None:
             save_png(cam.gt_image, base / "gt" / f"{idx:05d}.png")
@@ -169,6 +182,15 @@ def render_trajectory(
     renders again."""
     base = Path(model_path) / TRAJECTORY_DIRS[kind] / f"ours_{iteration}"
     frames = trajectory_frames(kind, cameras, n_frames, radius)
+
+    if is_multi_process():
+        # every frame fresh through the strip renderer: strips scale with
+        # the processes, and the reuse plan below is per device
+        images = parallel_render(scene, frames, bg, max_instances=max_instances)
+        if dist.get_rank() == 0:
+            for idx, img in enumerate(images):
+                save_png(img, base / f"{idx:05d}.png")
+        return base
 
     cap = max_instances
 

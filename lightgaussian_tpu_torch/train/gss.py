@@ -20,6 +20,8 @@ import torch
 from lightgaussian_tpu_torch.models.camera import Camera
 from lightgaussian_tpu_torch.models.gaussians import GaussianScene
 from lightgaussian_tpu_torch.ops.rasterize import count_render
+from lightgaussian_tpu_torch.parallel.gss import accumulate_gss_sharded
+from lightgaussian_tpu_torch.parallel.mesh import is_multi_process, make_mesh
 
 
 def accumulate_gss(
@@ -53,9 +55,13 @@ def accumulate_gss_auto(
 ):
     """`accumulate_gss` for cameras as a training loop holds them: the
     cached SSIM planes, which a counting render never reads, are dropped.
-    One device; the sweep sharded over several comes with the multi-device
-    slice."""
-    return accumulate_gss(scene, [c.with_gt_ssim_stats(None) for c in cameras], bg, max_instances, live_counts)
+    When a process group of more than one process runs (torchrun), the
+    cameras are split over all of them (`parallel.gss`), and every process
+    gets the sums."""
+    cameras = [c.with_gt_ssim_stats(None) for c in cameras]
+    if is_multi_process() and len(cameras) > 1:
+        return accumulate_gss_sharded(make_mesh(), scene, cameras, bg, max_instances, live_counts=live_counts)
+    return accumulate_gss(scene, cameras, bg, max_instances, live_counts)
 
 
 def _f32_index(fraction: float, n_alive: torch.Tensor) -> torch.Tensor:

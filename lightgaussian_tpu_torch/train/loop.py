@@ -26,7 +26,7 @@ import torch
 from lightgaussian_tpu_torch.config import OptimizationParams, TrainConfig
 from lightgaussian_tpu_torch.models.camera import Camera
 from lightgaussian_tpu_torch.ops import losses
-from lightgaussian_tpu_torch.ops.rasterize import default_max_instances
+from lightgaussian_tpu_torch.ops.rasterize import default_max_instances, render
 from lightgaussian_tpu_torch.ops.rasterize.binning import MAX_CAPACITY, snug_capacity
 from lightgaussian_tpu_torch.train import checkpoint as ckpt_mod
 from lightgaussian_tpu_torch.train import densify as densify_mod
@@ -172,13 +172,25 @@ def train(
     prune_type: str = "v_important_score",
     camera_batch: int = 1,
     cache_gt_ssim: bool | None = None,
+    gui=None,
+    gui_source_path: str = "",
 ) -> TrainState:
     """Run the training loop over `scene` (a `data.scene.Scene`); returns
     the final state.
 
     With `densify=True` this is the densify-and-prune trainer; with
     `densify=False` and `lr_mult_fn` it is the finetune loop.
-    `camera_batch > 1` raises, as `make_train_step` does.
+
+    `camera_batch > 1`: each iteration draws that many cameras (a list,
+    without replacement from the shuffled stack, in the JAX loop's order)
+    and makes ONE Adam update on their mean loss; `opt.iterations` then
+    counts optimizer steps, not cameras.
+
+    `gui` (a `render.network_gui.NetworkGUI`) takes a waiting viewer
+    before each iteration and, while one is connected, is polled with the
+    step timer paused; its frames are renders of the current scene through
+    the render-only kernel (B6), and `gui_source_path` is the verify string
+    it sends back.
     """
     opt: OptimizationParams = cfg.opt
     cams = _attach_gt_ssim_stats(list(scene.getTrainCameras()), cache_gt_ssim)
@@ -226,15 +238,32 @@ def train(
     last_print_t = time.time()
     white_background = bool((bg == 1.0).all())
 
+    def gui_render(cam, scale_mod):
+        """The viewer's frame at its pose, resolution and scale."""
+        with torch.no_grad():
+            return render(state.scene, cam, bg, scale_modifier=scale_mod, max_instances=max_instances,
+                          fast=True).render
+
+    def draw() -> Camera:
+        nonlocal camera_stack
+        if not camera_stack:
+            camera_stack = list(cams)
+        return camera_stack.pop(rng.randrange(len(camera_stack)))
+
     for iteration in range(first_iter + 1, opt.iterations + 1):
+        if gui is not None:
+            if gui.conn is None:
+                gui.try_connect()
+            if gui.conn is not None:  # no viewer, no sync: the host queues on
+                pause_timer()
+                gui.poll(gui_render, gui_source_path, iteration >= opt.iterations)
+
         timer.resume()
 
         if sh_degree_interval and iteration % sh_degree_interval == 0:
             state = dataclasses.replace(state, scene=state.scene.one_up_sh_degree())
 
-        if not camera_stack:
-            camera_stack = list(cams)
-        cam = camera_stack.pop(rng.randrange(len(camera_stack)))
+        cam = [draw() for _ in range(camera_batch)] if camera_batch > 1 else draw()
 
         state, metrics = step_fn(state, cam, bg)
         pending.append((iteration, metrics.loss))

@@ -25,7 +25,16 @@ the same batches. Held on the CPU:
 - a JAX bundle loaded by the port and the port's by JAX;
 - the quantized SH error under a quarter of a random codebook's, and a
   zero-importance scene finite;
-- the `vectree` CLI against the JAX CLI on the same PLY and scores.
+- the `vectree` CLI against the JAX CLI on the same PLY and scores;
+- the sharded fit (`train_codebook_sharded`) in 4 gloo processes against
+  JAX's sharded fit on 4 of the suite's virtual devices: every rank's
+  chunk of every step equal to the rows JAX's sharded loop draws; each step
+  from the port's state, by JAX's `_ema_step` under `shard_map` (psum and
+  the pooled expiry), within 1e-5 except at steps where a nearest-code tie
+  (as above) decides differently; the codebook the same on every rank; the
+  whole fit as good as JAX's (quantization error within 10%); and rows
+  padded onto the last rank (5 rows over 4 ranks, zero importance) leave
+  the codebook near the data (the JAX suite's regression).
 """
 import dataclasses
 
@@ -273,8 +282,6 @@ def test_zero_importance_scene_stays_finite(rng, tmp_path):
         assert torch.isfinite(getattr(deq, f)).all()
     with pytest.raises(ValueError, match="imp_score length"):
         tvt.quantize_scene(ts, np.zeros(7, np.float32), tmp_path, cfg)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tvq.train_codebook_sharded()
 
 
 def test_vectree_cli_matches_jax(rng, tmp_path):
@@ -303,3 +310,93 @@ def test_vectree_cli_matches_jax(rng, tmp_path):
     jflags = {a.dest: a.default for a in jcli.build_parser()._actions if a.dest != "help"}
     tflags = {a.dest: a.default for a in tcli.build_parser()._actions if a.dest != "help"}
     assert tflags == {**jflags, "device": "cuda"}
+
+
+@pytest.fixture(scope="module")
+def sharded_fit(tmp_path_factory):
+    from test_torch_parallel import fit_job, spawn_ranks
+
+    return spawn_ranks(tmp_path_factory.mktemp("fit"), 4, fit_job)
+
+
+def _jax_sharded_draws(feats, n, local_chunk, iterations):
+    """The rows each rank's loop of JAX's `train_codebook_sharded` samples
+    (its body, step by step): [rank][iteration] -> rows."""
+    pad = (-feats.shape[0]) % n
+    padded = np.concatenate([feats, feats[np.arange(pad) % feats.shape[0]]])
+    per = padded.shape[0] // n
+    out = []
+    for r, key in enumerate(jax.random.split(jax.random.PRNGKey(0), n)):
+        shard, rows = padded[r * per:(r + 1) * per], []
+        for _ in range(iterations):
+            key, sub = jax.random.split(key)
+            rows.append(shard[np.asarray(jax.random.randint(sub, (local_chunk,), 0, per))])
+        out.append(rows)
+    return out
+
+
+def test_sharded_fit_matches_jax_draw_for_draw(sharded_fit):
+    from jax.sharding import Mesh, PartitionSpec as P
+    from test_torch_parallel import FIT, fit_data
+
+    n, it, k_expire = 4, FIT["iterations"], FIT["k_expire"]
+    feats, imp = fit_data(FIT["rows"], FIT["dim"])
+    draws = _jax_sharded_draws(feats, n, FIT["chunk"] // n, it)
+    mesh = Mesh(np.array(jax.devices()[:n]), ("data",))
+    jstep = jax.jit(jax.shard_map(lambda st, c, w: jvq._ema_step(st, c, w, k_expire, axis_name="data"), mesh=mesh,
+                                  in_specs=(P(), P("data"), P("data")), out_specs=P(), check_vma=False))
+    clean = ties = 0
+    for i in range(it):
+        chunks = [sharded_fit[r][f"chunk{i}"] for r in range(n)]
+        for r in range(n):
+            np.testing.assert_array_equal(chunks[r], draws[r][i], err_msg=f"rank {r} step {i}")
+            for f in ("embed", "embed_avg", "cluster_size"):  # one codebook on every rank
+                np.testing.assert_array_equal(sharded_fit[r][f"out{i}/{f}"], sharded_fit[0][f"out{i}/{f}"])
+        s_in = jvq.CodebookState(*(jnp.asarray(sharded_fit[0][f"in{i}/{f}"])
+                                   for f in ("embed", "embed_avg", "cluster_size")))
+        # a step is held only where no sampled row has two codes within 1e-5 of
+        # its distance: there float32 rounding decides, and XLA's jitted step
+        # may decide unlike its own eager nearest_code
+        tied = False
+        e = np.asarray(s_in.embed, np.float64)
+        for c in chunks:
+            d = np.sort(((c.astype(np.float64)[:, None, :] - e[None]) ** 2).sum(-1), axis=1)
+            jn = np.asarray(jvq.nearest_code(jnp.asarray(c), s_in.embed))
+            tn = tvq.nearest_code(_t(c), _t(s_in.embed)).numpy()
+            near = d[:, 1] - d[:, 0] < 1e-5
+            np.testing.assert_array_equal(jn[~near], tn[~near])
+            tied |= bool(near.any())
+        if tied:
+            ties += 1
+            continue
+        want = jstep(s_in, jnp.asarray(np.concatenate(chunks)),
+                     jnp.asarray(np.concatenate([sharded_fit[r][f"weight{i}"] for r in range(n)])))
+        got = convert.codebook_state_from_numpy(*(sharded_fit[0][f"out{i}/{f}"]
+                                                  for f in ("embed", "embed_avg", "cluster_size")), device="cpu")
+        _assert_state_close(got, want, 1e-5)
+        clean += 1
+    print(f"sharded fit: {clean} steps held, {ties} with a near-tie")
+    assert clean >= 10, (clean, ties)
+    # the whole fits: the same quality
+    j0 = jvq.init_codebook(jax.random.PRNGKey(0), FIT["codes"], FIT["dim"], feats=jnp.asarray(feats))
+    jfit = jvq.train_codebook_sharded(mesh, jax.random.PRNGKey(0), j0, jnp.asarray(feats), jnp.asarray(imp),
+                                      iterations=it, chunk=FIT["chunk"], k_expire=k_expire)
+    err_j = _quant_error(feats, np.asarray(jfit.embed))
+    err_t = _quant_error(feats, sharded_fit[0]["fit/embed"])
+    assert abs(err_t - err_j) < 0.1 * err_j, (err_t, err_j)
+
+
+def test_sharded_padding_rows_dont_pull_the_codebook(sharded_fit):
+    from test_torch_parallel import PAD_FIT, fit_data
+
+    data, _ = fit_data(PAD_FIT["rows"], PAD_FIT["dim"], padding_case=True)
+    embed = sharded_fit[0]["pad/embed"]
+    assert np.isfinite(embed).all()
+    # codes pulled toward zero padding would sit near the origin (error ~100)
+    assert _quant_error(data, embed) < 0.1
+
+
+def test_shard_rows_repeat_real_rows():
+    x = torch.arange(5.0)[:, None]
+    shards = [tvq.shard_rows(x, 4, r) for r in range(4)]
+    np.testing.assert_array_equal(torch.cat(shards).reshape(-1).numpy(), [0, 1, 2, 3, 4, 0, 1, 2])

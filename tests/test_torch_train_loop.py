@@ -425,10 +425,10 @@ def test_train_cli_resumes_and_serves(workspace, tmp_path, capsys):
                "--start_checkpoint", str(m / "chkpnt40.npz"), "--iterations", "44",
                "--densify_until_iter", "30", "--opacity_reset_interval", "1000", "--position_lr_max_steps", "40",
                "--test_iterations", "44", "--save_iterations", "44", "--checkpoint_iterations", "44",
-               "--prune_iterations", "999"])
+               "--prune_iterations", "999", "--port", "0"])
     out = capsys.readouterr().out
     assert "Resumed from" in out and "at iteration 40" in out and "4 iterations" in out
-    assert "the live viewer is not ported yet" in out  # no --disable_viewer: one line, and it trains on
+    assert "[viewer]" not in out  # no --disable_viewer: the viewer listens, and with no viewer it trains on
     before, _, _ = tckpt.load_checkpoint(m / "chkpnt40.npz", device="cpu")
     after, it, _ = tckpt.load_checkpoint(m / "chkpnt44.npz", device="cpu")
     assert it == 44 and after.step == 44 and before.step == 40
@@ -446,10 +446,14 @@ def test_train_cli_defaults_to_the_card_and_raises_without_one(workspace, tmp_pa
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tcli.main(["-s", str(dataset), "-m", str(tmp_path / "m"), "--quiet", "--disable_viewer", *TRAIN_FLAGS])
     assert not (tmp_path / "m" / "metric.csv").exists()
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    # one process trains: under torchrun with more than one process the trainer refuses
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(SystemExit, match="trains in one process"):
         tcli.main(["-s", str(dataset), "-m", str(tmp_path / "m2"), "--device", "cpu", "--disable_viewer",
                    "--camera_batch", "2", *TRAIN_FLAGS])
+    assert not (tmp_path / "m2").exists()
     defaults = tcli.build_parser().parse_args([])
+    assert defaults.camera_batch == 1
     assert defaults.device == "cuda" and defaults.prune_iterations == [16_000, 24_000]
     assert defaults.checkpoint_iterations == [30_000] and defaults.cache_gt_ssim is None
     assert not hasattr(defaults, "interpret")

@@ -325,8 +325,11 @@ def test_step_needs_gt_and_one_camera(world):
     bare = dataclasses.replace(world.tcams[0], gt_image=None)
     with pytest.raises(ValueError, match="ground-truth"):
         step(state, bare, world.tbg)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tstep.make_train_step(TOpt(), SPATIAL, MAX_INST, camera_batch=2)
+    batched = tstep.make_train_step(TOpt(), SPATIAL, MAX_INST, camera_batch=2)
+    with pytest.raises(ValueError, match="takes 2 cameras"):
+        batched(state, world.tcams[:1], world.tbg)
+    with pytest.raises(ValueError, match="ground-truth"):
+        batched(state, [world.tcams[0], bare], world.tbg)
 
 
 class _OrderedEvent:
