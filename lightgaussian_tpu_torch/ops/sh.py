@@ -113,6 +113,10 @@ def sh_to_rgb(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor
 
 
 def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
-    """Inverse of the DC band: (rgb - 0.5) / C0."""
-    return (rgb - 0.5) / C0
+    """Inverse of the DC band: (rgb - 0.5) / C0, a true float32 division as
+    the JAX package's on every device. (On CUDA, a tensor divided by a
+    Python number is multiplied by the reciprocal rounded to float32, one
+    ulp off for black: C0 * rgb_to_sh(0) + 0.5 then lies under 0, and the
+    colour clamp of `sh_to_rgb` passes no gradient to a black point.)"""
+    return (rgb - 0.5) / torch.tensor(C0, dtype=rgb.dtype, device=rgb.device)
 

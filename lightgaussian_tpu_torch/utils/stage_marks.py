@@ -7,26 +7,37 @@ calls `start()` (which records the origin), runs the step, synchronises,
 and reads `stop()`: each stage's time is the elapsed time from the event
 before it to its own, on the stream the work ran on, with no synchronise
 inside the step.
+
+On the CPU (`start("cpu")`), where each operation has finished when the
+next is called, a mark reads the host clock instead.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
 _marks: list | None = None
+_host_clock = False
 
 
 def mark(name: str) -> None:
-    """Record a CUDA event ending the stage `name` on the current stream, if
-    marks are on."""
-    if _marks is not None:
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        _marks.append((name, event))
+    """Record a CUDA event (or, on the CPU, the host clock) ending the stage
+    `name` on the current stream, if marks are on."""
+    if _marks is None:
+        return
+    if _host_clock:
+        _marks.append((name, time.perf_counter()))
+        return
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    _marks.append((name, event))
 
 
-def start() -> None:
-    """Turn the marks on and record the origin."""
-    global _marks
+def start(device: str | torch.device = "cuda") -> None:
+    """Turn the marks on for work on `device` and record the origin."""
+    global _marks, _host_clock
+    _host_clock = torch.device(device).type != "cuda"
     _marks = []
     mark("origin")
 
@@ -36,5 +47,7 @@ def stop() -> list[tuple[str, float]]:
     The caller has synchronised the stream since the last mark."""
     global _marks
     marks, _marks = _marks or [], None
+    if _host_clock:
+        return [(name, 1e3 * (t1 - t0)) for (_, t0), (name, t1) in zip(marks, marks[1:])]
     return [(name, start_event.elapsed_time(event))
             for (_, start_event), (name, event) in zip(marks, marks[1:])]

@@ -62,6 +62,22 @@ def test_sh_helpers_match_jax():
         tsh.eval_sh(5, _t(np.zeros((1, 36, 3), np.float32)), _t(np.zeros((1, 3), np.float32)))
 
 
+def test_every_8_bit_colour_starts_with_a_gradient():
+    """A point cloud's colours (k/255) go through `rgb_to_sh` into the DC
+    band: bit for bit JAX's float32 division, and a black point renders
+    exactly 0, where the colour clamp still passes its gradient (one ulp
+    lower, as a reciprocal multiply gave on the card, a black start never
+    trains; chip_smoke.py phase 9 holds the card's levels to these)."""
+    levels = np.repeat((np.arange(256, dtype=np.float32) / 255.0)[:, None], 3, axis=1)
+    dc = tsh.rgb_to_sh(_t(levels))
+    np.testing.assert_array_equal(_np(dc), np.asarray(jsh.rgb_to_sh(jnp.asarray(levels))))
+    sh = dc.clone().requires_grad_(True)
+    rgb = tsh.sh_to_rgb(0, sh[:, None, :], _t(np.tile([[0.0, 0.0, 1.0]], (256, 1)).astype(np.float32)))
+    assert float(rgb[0].abs().max()) == 0.0
+    rgb.sum().backward()
+    assert bool((sh.grad == np.float32(tsh.C0)).all())
+
+
 def test_covariance_matches_jax():
     rng = np.random.default_rng(1)
     q = rng.normal(size=(128, 4)).astype(np.float32)
