@@ -184,6 +184,27 @@ Phases, each of which exits non-zero on failure:
      First, `ops.sh.rgb_to_sh` of the 256 8-bit levels on the card equals
      the CPU's bit for bit (e2e_hard's point cloud is black: one ulp lower,
      its colours sit under the clamp and it never trains).
+  10. The measurement layer (`lightgaussian_tpu_torch/scripts/`) at full
+     width, each path with its launch counts read around it: `bench` at its
+     defaults (300,000 Gaussians SH 3, 1920x1080, cut 983,040; 1 + 3 + 5 x
+     10 steps: B1, B2 and B3 54 each, B4 55 with the target's moments) and
+     at `--batch 2 --repeats 3 --iters 3` (B1-B3 26, B4 27), its JSON line
+     printed and its value held to the pixels over the median step; the
+     bench step's gradients against the same loss through the plain
+     versions of B1-B4 on the card, by B2's rules (B2_TOL,
+     B2_MEDIAN_REL_TOL); `profile_binning` (the pieces of `bin_splats`
+     composed in order give its outputs bit for bit, and their times sum to
+     0.7-1.5x the whole); `profile_binning_infer` at both points (the same
+     bit-equality; at `--large` its fresh frame within 1.5x of phase 3's
+     serving frame); `profile_bwd` (its B2 seed bit-equal to what the
+     autograd blend hands B2 for the same cotangent); and last
+     `profile_step` (its pieces, and a `torch.profiler` trace of 5 bench
+     steps read through by `harness.trace_summary`: each hand-written
+     kernel's launches in the trace equal the counters', the idle share
+     lies in [0, 1); the top ops and longest gaps printed). The trace runs
+     last: in a process after a profiler session the host runs ops more
+     slowly. First, `sh_dc_to_rgb` of the 256 levels'
+     DC values on the card equals the CPU's bit for bit.
 Each phase ends with its own seconds. Then a `{"kernels": [...]}` line of the
 nine kernels, the card line, and the final `{"ok": true, "device": {...}}`
 line.
@@ -202,6 +223,7 @@ sources beside it; without CUDA, or without the package beside it, it fails.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -389,6 +411,11 @@ STREAM_SLACK = 1.05  # a measured stream above this share of PEAK_BYTES would ma
 # px a frame and the drift gate rebins every frame, and at step 2 pi/BENCH_FINE_STEP_DIV, where it reuses frames
 # (at 2 pi/4000 it still rebinned all 48).
 BENCH_FINE_STEP_DIV = 20000
+# Phase 10, the measurement layer: the bench's batched run, the binning split's sum against the whole, and the
+# profiler's fresh frame against phase 3's serving frame.
+BENCH_BATCH_ARGS = ("--batch", "2", "--repeats", "3", "--iters", "3")
+PIECES_RATIO = (0.7, 1.5)  # sum of the binning pieces over the whole; outside it the split misses or repeats work
+FRESH_VS_SERVING = 1.5
 
 
 def fail(msg: str) -> None:
@@ -1104,8 +1131,9 @@ def phase3(s: Smoke, tmp: Path) -> dict:
         s.sync()
         whole.append(1e3 * (time.perf_counter() - t0))
         runs.append(stage_marks.stop())
+    s.serving_frame_ms = statistics.median(whole)
     s.say(f"  render(fast=True) 1920x1080, 300k Gaussians SH 3: median "
-          f"{statistics.median(whole):.3f} ms/frame over {N_VIEWS} views")
+          f"{s.serving_frame_ms:.3f} ms/frame over {N_VIEWS} views")
     stage_split(s, runs, SERVE_STAGES, whole, "render(fast=True)")
     b0 = binning.bin_splats(preprocess(loaded, cams[0]), grid, max_inst)
     time_blend_kernels(s, b0, grid)
@@ -2662,6 +2690,144 @@ def phase9(s: Smoke, tmp: Path) -> dict:
     return paths
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """Within it, the training path's kernels (B1, B2, B3, B4) run their
+    plain PyTorch versions on the card: the callers reach the wrappers as
+    module attributes."""
+    from lightgaussian_tpu_torch.ops import losses
+    from lightgaussian_tpu_torch.ops.rasterize import blend
+
+    saved = (blend.blend_forward, blend.blend_backward, losses.blur, losses.blur3)
+    blend.blend_forward = lambda ts, inst, grid: blend.plain_blend(ts, inst, grid, exact=True)[:2]
+    blend.blend_backward = lambda ts, inst, gid, tg, tr, grid, n: blend.reduce_per_gaussian(
+        blend.plain_blend_backward(ts, inst, tg, tr, grid)[0], gid, n)
+    losses.blur, losses.blur3 = losses.plain_blur, losses.plain_blur3
+    try:
+        yield
+    finally:
+        blend.blend_forward, blend.blend_backward, losses.blur, losses.blur3 = saved
+
+
+def phase10(s: Smoke, tmp: Path) -> dict:
+    """The measurement layer at full width: the bench, the step profiler
+    with its trace read through, the binning profilers and the backward
+    profiler; returns each path's launch counts."""
+    from lightgaussian_tpu_torch.ops import sh as sh_ops
+    from lightgaussian_tpu_torch.ops.rasterize import blend, tiled
+    from lightgaussian_tpu_torch.scripts import (bench, profile_binning, profile_binning_infer, profile_bwd,
+                                                 profile_step)
+
+    torch = s.torch
+    paths = {}
+
+    # sh_dc_to_rgb on the card rounds as on the CPU (C0 a float32 tensor, as in rgb_to_sh)
+    levels = torch.arange(256, dtype=torch.float32) / 255.0
+    dc = sh_ops.rgb_to_sh(levels)
+    if not torch.equal(sh_ops.sh_dc_to_rgb(dc.to(s.dev)).cpu(), sh_ops.sh_dc_to_rgb(dc)):
+        fail("sh_dc_to_rgb on the card is not the CPU's")
+
+    # 10a: the bench at its defaults and batched, launches read around each run
+    for label, extra in (("bench", ()), ("bench " + " ".join(BENCH_BATCH_ARGS), BENCH_BATCH_ARGS)):
+        args = bench.build_parser().parse_args([*extra, "--device", DEVICE, "--out_root", str(tmp)])
+        reset_counts()
+        line = bench.run(args)
+        s.sync()
+        paths[label] = read_counts()
+        steps = args.batch * (1 + bench.WARMUP + args.repeats * args.iters)
+        _launches_of(s, label, paths[label], {"blend_forward": steps, "blend_backward": steps, "blur3": steps,
+                                              "blur": steps + 1})
+        s.say(f"  {label}: {json.dumps(line)}")
+        want = args.batch * bench.WIDTH * bench.HEIGHT / (line["median_ms"] * 1e-3)
+        if set(line) != {"metric", "value", "unit", "median_ms", "spread_ms", "groups"} or abs(line["value"] - want) > 0.5:
+            fail(f"{label}: the line {line} does not hold value = pixels / median ({want:.1f})")
+    # the bench step's gradients against the same loss through the plain versions of B1-B4, by B2's rules
+    step = bench.setup(1, s.dev)
+    loss_k, grads_k, live = step()
+    with plain_kernels():
+        reset_counts()
+        loss_p, grads_p, _ = step()
+        s.sync()
+        if any(read_counts().values()):
+            fail(f"the plain step launched kernels: {read_counts()}")
+    worst = hold_gradients("the bench step against its plain kernels", grads_k, grads_p)
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    s.say(f"  bench step ({live} live instances) against B1-B4's plain versions: loss {float(loss_k):.7f} vs "
+          f"{float(loss_p):.7f} (rel {rel:.2e}); largest gradient difference {worst:.2e} of its field's largest")
+    del step, grads_k, grads_p
+
+    # 10b: binning piece by piece, train form
+    reset_counts()
+    r = profile_binning.run(profile_binning.build_parser().parse_args(["--device", DEVICE, "--out_root", str(tmp)]))
+    s.sync()
+    paths["profile_binning"] = read_counts()
+    _launches_of(s, "profile_binning", paths["profile_binning"], {})
+    if not r["bit_equal"]:
+        fail("binning's pieces composed in order differ from bin_splats")
+    lo, hi = PIECES_RATIO
+    if not lo <= r["ratio"] <= hi:
+        fail(f"binning's pieces sum to {r['ratio']:.3f} x the whole, outside [{lo}, {hi}]")
+
+    # 10c: a serving frame piece by piece at both points
+    for extra in ((), ("--large",)):
+        reset_counts()
+        r = profile_binning_infer.run(profile_binning_infer.build_parser().parse_args(
+            [*extra, "--device", DEVICE, "--out_root", str(tmp)]))
+        s.sync()
+        what = f"profile_binning_infer {r['point']}"
+        paths[what] = read_counts()
+        if not r["binning"]["bit_equal"] or not paths[what]["blend_forward_fast"]:
+            fail(f"{what}: pieces bit-equal {r['binning']['bit_equal']}, launches {paths[what]}")
+        if extra:
+            fresh = r["rows"]["fresh frame (render(fast=True))"]
+            ratio = fresh / s.serving_frame_ms
+            s.say(f"  {what}: fresh frame {fresh:.3f} ms against phase 3's serving frame {s.serving_frame_ms:.3f} "
+                  f"ms ({ratio:.3f}x)")
+            if not 1.0 / FRESH_VS_SERVING <= ratio <= FRESH_VS_SERVING:
+                fail(f"{what}: the fresh frame is {ratio:.3f} x phase 3's serving frame")
+
+    # 10d: the backward piece by piece; its B2 seed is what the autograd blend hands B2
+    reset_counts()
+    r = profile_bwd.run(profile_bwd.build_parser().parse_args(["--device", DEVICE, "--out_root", str(tmp)]))
+    s.sync()
+    paths["profile_bwd"] = read_counts()
+    bw = r["inputs"]
+    handed = {}
+    real = blend.blend_backward
+
+    def capture(ts, inst, gid, tile_g, tile_r, grid, n):
+        handed["seed"] = (tile_g.clone(), tile_r.clone())
+        return real(ts, inst, gid, tile_g, tile_r, grid, n)
+
+    blend.blend_backward = capture
+    try:
+        image, _, _ = tiled.blend_tiled(bw.splats, torch.zeros(3, device=s.dev), profile_bwd.WIDTH,
+                                        profile_bwd.HEIGHT, profile_bwd.CAP)
+        torch.autograd.grad(image, bw.splats.mean2d, bw.g_image, retain_graph=True)
+    finally:
+        blend.blend_backward = real
+    if not all(torch.equal(a, b) for a, b in zip(handed["seed"], bw.seed)):
+        fail("profile_bwd's B2 seed differs from what the autograd blend hands B2")
+    s.say(f"  profile_bwd: B2's seed bit-equal to the autograd blend's; launches {paths['profile_bwd']}")
+    # 10e: the step's pieces and a profiler trace of bench steps, read through. Last: in this process the host
+    # runs ops more slowly after a torch.profiler session, and the rows above would read that
+    reset_counts()
+    r = profile_step.run(profile_step.build_parser().parse_args(["--device", DEVICE, "--out_root", str(tmp)]))
+    s.sync()
+    paths["profile_step"] = read_counts()
+    tr, counted = r["trace"], r["launches"]
+    traced = {k: tr["hand_written"].get(k, 0) for k in counted}
+    s.say(f"  profile_step: trace of {r['trace_steps']} bench steps, hand-written launches {traced}, the counters "
+          f"{counted}; idle share {tr['idle_share']}")
+    if traced != counted or not counted["blend_backward"]:
+        fail(f"the trace's hand-written launches {traced} are not the counters' {counted}")
+    if tr["idle_share"] is None or not 0.0 <= tr["idle_share"] < 1.0:
+        fail(f"the trace's idle share {tr['idle_share']} lies outside [0, 1)")
+
+    print("phase 10 ok", flush=True)
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -2698,11 +2864,12 @@ def main() -> int:
         cli_paths.update(timed(8, phase8, tmp, counts))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
-    try:
-        cli_paths.update(timed(9, phase9, tmp))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    for number, phase in ((9, phase9), (10, phase10)):
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+        try:
+            cli_paths.update(timed(number, phase, tmp))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
     # launches on each kernel's path: the render CLI (B6), the training steps (B1-B4), the eval render
     # (B7), the trainer CLI (B5); B8 and the probe, on no product path, carry their own entry points'.
     # Beside them, each kernel's launches on every path the run drove.

@@ -232,64 +232,114 @@ def sort_key_bits(grid: TileGrid) -> int:
     return 32 - tile_bits
 
 
+class TileCover(NamedTuple):
+    """Each Gaussian's clamped tile rect (lo_x, lo_y, hi_x), its exact-
+    intersection mask over the rect's row-major slots (0 on the >32-tile
+    fallback) and its instance count."""
+
+    lo_x: torch.Tensor
+    lo_y: torch.Tensor
+    hi_x: torch.Tensor
+    mask: torch.Tensor
+    count: torch.Tensor
+
+
+# The pieces of `bin_splats`, in the order it runs them; the binning
+# profiler (`scripts/profile_binning.py`) times each of them.
+
+
+def _cover(splats: Splats, grid: TileGrid) -> TileCover:
+    """(a) `tile_rect` + `_exact_tile_mask`."""
+    lo_x, lo_y, hi_x, _hi_y, rect_count = tile_rect(
+        splats.mean2d, splats.radius, grid, conic=splats.conic, opacity=splats.opacity
+    )
+    mask, count, _use_mask = _exact_tile_mask(splats, lo_x, lo_y, hi_x, rect_count)
+    return TileCover(lo_x, lo_y, hi_x, mask, count)
+
+
+def _instance_total(count: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(b) The counts' inclusive prefix sum and the live total, read on the
+    host: the binning's one synchronise."""
+    cum = torch.cumsum(count, dim=0)
+    return cum, int(cum[-1]) if count.numel() else 0
+
+
+def _fill_slots(cover: TileCover, cum: torch.Tensor, total: int, m: int, grid: TileGrid):
+    """(c) Instance slot -> (source Gaussian, tile) for the first m of the
+    `total` slots; slots past the capacity are cut."""
+    dev = cum.device
+    n = cover.count.shape[0]
+    gid = torch.repeat_interleave(
+        torch.arange(n, device=dev), cover.count, output_size=total
+    )[:m]
+    offsets = cum - cover.count
+    local = torch.arange(m, device=dev) - offsets[gid]
+    # The (local+1)-th surviving bit of the exact-intersection mask, or the
+    # rect slot itself on the >32-tile fallback (mask == 0).
+    g_mask = cover.mask[gid]
+    local = torch.where(g_mask > 0, _kth_set_bit(g_mask, local), local)
+    rect_w = torch.clamp(cover.hi_x - cover.lo_x, min=1)[gid]
+    tile = (cover.lo_y[gid] + local // rect_w) * grid.tiles_x + (cover.lo_x[gid] + local % rect_w)
+    return gid, tile
+
+
+def _depth_key(depth: torch.Tensor, gid: torch.Tensor, tile: torch.Tensor, grid: TileGrid) -> torch.Tensor:
+    """(d) The (tile | depth) sort key, with range-adaptive depth
+    quantization: subtract the frame's least depth bit pattern and shift
+    only as far as the frame's depth range needs."""
+    depth_bits = sort_key_bits(grid)
+    dep_raw = depth.view(torch.int32).to(torch.int64)[gid]
+    rel = dep_raw - dep_raw.min()
+    pow2 = 1 << torch.arange(33, dtype=torch.int64, device=gid.device)
+    bits_needed = (rel.max() >= pow2).sum()  # bit length; 0 when depths are equal
+    shift = torch.clamp(bits_needed - depth_bits, min=0)
+    return (tile << depth_bits) | (rel >> shift)
+
+
+def _sort_instances(key: torch.Tensor, gid: torch.Tensor):
+    """(e) The stable sort by key, and the Gaussian of each sorted slot."""
+    key_s, order = torch.sort(key, stable=True)
+    return key_s, gid[order]
+
+
+def _tile_starts(key_s: torch.Tensor, grid: TileGrid) -> torch.Tensor:
+    """(f) Each tile's first slot in the sorted keys (and the end)."""
+    tile_s = key_s >> sort_key_bits(grid)
+    return torch.searchsorted(
+        tile_s, torch.arange(grid.num_tiles + 1, dtype=torch.int64, device=key_s.device), side="left"
+    ).to(torch.int32)
+
+
+def _gather_features(splats: Splats, gid_s: torch.Tensor) -> torch.Tensor:
+    """(g) The sorted instances' feature rows."""
+    return pack_features(splats)[gid_s].contiguous()
+
+
 def bin_splats(splats: Splats, grid: TileGrid, max_instances: int) -> Binning:
     """Binning for the blends and the blend backward. The backward needs
     only `gid_sorted` (its kernel adds each instance's gradient to its
     Gaussian), so the JAX package's `pre_pos` permutation, `gauss_cum` and
     `segment_reduce_pre`, a TPU layout for an atomics-free reduce, have no
     counterpart here."""
-    dev = splats.mean2d.device
     n = splats.mean2d.shape[0]
     cap = instance_capacity(max_instances)
-    lo_x, lo_y, hi_x, _hi_y, rect_count = tile_rect(
-        splats.mean2d, splats.radius, grid, conic=splats.conic, opacity=splats.opacity
-    )
-    mask, count, _use_mask = _exact_tile_mask(splats, lo_x, lo_y, hi_x, rect_count)
-
-    cum = torch.cumsum(count, dim=0)
-    total = int(cum[-1]) if n else 0
+    cover = _cover(splats, grid)
+    cum, total = _instance_total(cover.count)
     m = min(total, cap)
-    num_tiles = grid.num_tiles
     if m == 0:
+        dev = splats.mean2d.device
         return Binning(
             inst=torch.zeros((0, FEAT_WIDTH), dtype=torch.float32, device=dev),
-            tile_starts=torch.zeros(num_tiles + 1, dtype=torch.int32, device=dev),
+            tile_starts=torch.zeros(grid.num_tiles + 1, dtype=torch.int32, device=dev),
             total=total,
             gid_sorted=torch.zeros(0, dtype=torch.int64, device=dev),
             num_gaussians=n,
         )
-
-    # Instance slot -> source Gaussian; slots past the capacity are cut.
-    gid = torch.repeat_interleave(
-        torch.arange(n, device=dev), count, output_size=total
-    )[:m]
-    offsets = cum - count
-    local = torch.arange(m, device=dev) - offsets[gid]
-    # The (local+1)-th surviving bit of the exact-intersection mask, or the
-    # rect slot itself on the >32-tile fallback (mask == 0).
-    g_mask = mask[gid]
-    local = torch.where(g_mask > 0, _kth_set_bit(g_mask, local), local)
-    rect_w = torch.clamp(hi_x - lo_x, min=1)[gid]
-    tile = (lo_y[gid] + local // rect_w) * grid.tiles_x + (lo_x[gid] + local % rect_w)
-
-    # Range-adaptive depth quantization: subtract the frame's least depth
-    # bit pattern and shift only as far as the frame's depth range needs.
-    depth_bits = sort_key_bits(grid)
-    dep_raw = splats.depth.view(torch.int32).to(torch.int64)[gid]
-    rel = dep_raw - dep_raw.min()
-    pow2 = 1 << torch.arange(33, dtype=torch.int64, device=dev)
-    bits_needed = (rel.max() >= pow2).sum()  # bit length; 0 when depths are equal
-    shift = torch.clamp(bits_needed - depth_bits, min=0)
-    key = (tile << depth_bits) | (rel >> shift)
-
-    key_s, order = torch.sort(key, stable=True)
-    gid_s = gid[order]
-    tile_s = key_s >> depth_bits
-    tile_starts = torch.searchsorted(
-        tile_s, torch.arange(num_tiles + 1, dtype=torch.int64, device=dev), side="left"
-    ).to(torch.int32)
-
-    inst = pack_features(splats)[gid_s].contiguous()
+    gid, tile = _fill_slots(cover, cum, total, m, grid)
+    key = _depth_key(splats.depth, gid, tile, grid)
+    key_s, gid_s = _sort_instances(key, gid)
+    tile_starts = _tile_starts(key_s, grid)
+    inst = _gather_features(splats, gid_s)
     return Binning(inst=inst, tile_starts=tile_starts, total=total, gid_sorted=gid_s, num_gaussians=n)
 
 

@@ -35,6 +35,13 @@ class Splats:
     radius: torch.Tensor  # [N] int32 pixel radius (0 = culled)
 
 
+def view_colors(scene: GaussianScene, camera: Camera) -> torch.Tensor:
+    """[N, 3] clamped RGB of each Gaussian's SH seen from the camera centre."""
+    dirs = scene.means - camera.camera_center
+    dirs = dirs / (torch.sqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True)) + 1e-12)
+    return sh_ops.sh_to_rgb(scene.active_sh_degree, scene.sh_coeffs, dirs)
+
+
 def preprocess(
     scene: GaussianScene,
     camera: Camera,
@@ -91,12 +98,7 @@ def preprocess(
     lambda1 = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
     radius_f = torch.ceil(3.0 * torch.sqrt(lambda1))
 
-    if colors_precomp is not None:
-        color = colors_precomp
-    else:
-        dirs = means - camera.camera_center
-        dirs = dirs / (torch.sqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True)) + 1e-12)
-        color = sh_ops.sh_to_rgb(scene.active_sh_degree, scene.sh_coeffs, dirs)
+    color = colors_precomp if colors_precomp is not None else view_colors(scene, camera)
 
     valid = scene.alive & (depth > NEAR_PLANE) & det_valid
     radius = torch.where(valid, radius_f, 0.0).to(torch.int32)

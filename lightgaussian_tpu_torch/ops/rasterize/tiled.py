@@ -60,6 +60,23 @@ def _compose(tile_rgb, tile_t, bg, grid, width: int, height: int):
     return image, t_pad[:height, :width]
 
 
+def _backward_seed(image, final_t, g_image, g_t, grid):
+    """B2's inputs from the exact blend's cotangents: (the image cotangent
+    per tile [T, 3, PIX], the per-pixel "remaining contribution" seed per
+    tile [T, 1, PIX]). The seed is dot(rendered colour incl. background, g)
+    plus the direct cotangent of final_T (both decay as -x / (1 - alpha_i)
+    along the walk)."""
+    r = (image * g_image).sum(dim=0) + final_t * g_t
+    return _tile_image(g_image.contiguous(), grid), _tile_image(r[None].contiguous(), grid)
+
+
+def _splat_grads(grads: torch.Tensor) -> tuple:
+    """B2's per-Gaussian [N, FEAT_WIDTH] gradients as those of (mean2d,
+    conic, color, opacity)."""
+    return (grads[:, FEAT_MX:FEAT_MY + 1], grads[:, FEAT_CA:FEAT_CC + 1], grads[:, FEAT_R:FEAT_B + 1],
+            grads[:, FEAT_OPA])
+
+
 def _detached(splats: Splats) -> Splats:
     return Splats(**{k: v.detach() for k, v in vars(splats).items()})
 
@@ -88,21 +105,11 @@ class _ExactBlend(torch.autograd.Function):
             g_image = torch.zeros_like(image)
         if g_t is None:
             g_t = torch.zeros_like(final_t)
-        # Per-pixel "remaining contribution" seed: dot(rendered colour incl.
-        # background, g) plus the direct cotangent of final_T (both decay as
-        # -x / (1 - alpha_i) along the walk).
-        r = (image * g_image).sum(dim=0) + final_t * g_t
-        grads = blend_mod.blend_backward(
-            b.tile_starts, b.inst, b.gid_sorted, _tile_image(g_image.contiguous(), grid),
-            _tile_image(r[None].contiguous(), grid), grid, ctx.n,
-        )
+        tile_g, tile_r = _backward_seed(image, final_t, g_image, g_t, grid)
+        grads = blend_mod.blend_backward(b.tile_starts, b.inst, b.gid_sorted, tile_g, tile_r, grid, ctx.n)
         d_bg = (final_t[None] * g_image).sum(dim=(1, 2))
         stage_marks.mark("B2 + reduce")
-        return (
-            grads[:, FEAT_MX:FEAT_MY + 1], grads[:, FEAT_CA:FEAT_CC + 1],
-            grads[:, FEAT_R:FEAT_B + 1], grads[:, FEAT_OPA], d_bg,
-            None, None, None, None,
-        )
+        return (*_splat_grads(grads), d_bg, None, None, None, None)
 
 
 def blend_tiled(

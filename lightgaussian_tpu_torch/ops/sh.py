@@ -120,3 +120,10 @@ def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
     colour clamp of `sh_to_rgb` passes no gradient to a black point.)"""
     return (rgb - 0.5) / torch.tensor(C0, dtype=rgb.dtype, device=rgb.device)
 
+
+
+def sh_dc_to_rgb(sh_dc: torch.Tensor) -> torch.Tensor:
+    """DC band -> rgb: sh_dc * C0 + 0.5 (the reference's `SH2RGB`), with C0
+    a float32 tensor so that the card rounds as the CPU does (see
+    `rgb_to_sh`)."""
+    return sh_dc * torch.tensor(C0, dtype=sh_dc.dtype, device=sh_dc.device) + 0.5

@@ -1,6 +1,6 @@
 """What the end-to-end scripts share: the card's name, per-call timing, the
-kernels' launch counts, and a log of each stage's wall time, iterations and
-launches.
+kernels' launch counts, a log of each stage's wall time, iterations and
+launches, and a read-through of a `torch.profiler` Chrome trace.
 
 Times on a card come from CUDA events; on the CPU (`--device cpu`, for tests
 at small sizes) from the host clock, and every report says which: a CPU
@@ -9,6 +9,9 @@ number is never a card measurement.
 from __future__ import annotations
 
 import contextlib
+import json
+import re
+import statistics
 import subprocess
 import tempfile
 import time
@@ -67,6 +70,22 @@ def ms_per_call(fn, device: torch.device, reps: int = 20, warmup: int = 3) -> fl
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
+def host_ms_per_call(fn, device: torch.device, reps: int = 20, warmup: int = 3) -> float:
+    """Median host-clock time of `fn` over `reps` calls, each between two
+    synchronises, after `warmup`: what a caller that waits for the result
+    pays, launch and synchronise latency included."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        sync(device)
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
 def launch_counts() -> dict:
     """Launches of every hand-written kernel so far (a wrapper counts only
     where it launches its kernel: on the CPU all stay 0)."""
@@ -104,3 +123,83 @@ class StageLog:
             launches = ", ".join(f"{k} {v}" for k, v in sorted(r["launches"].items()))
             lines.append(f"| {r['stage']} | {r['wall_s']:.2f} | {r['iterations'] or ''} | {rate} | {launches} |")
         return lines
+
+
+# The device name of each hand-written kernel's main launch (demangled as
+# torch.profiler writes it, or mangled), by its launch counter. A wrapper's
+# other device work (zeroing an output, the tile-ordering kernel) is not its
+# launch.
+HAND_WRITTEN = {
+    "blend_forward": r"blend_tile_kernel<true, false>|blend_tile_kernelILb1ELb0E",
+    "blend_forward_fast": r"blend_tile_kernel<false, false>|blend_tile_kernelILb0ELb0E",
+    "blend_count": r"blend_tile_kernel<true, true>|blend_tile_kernelILb1ELb1E",
+    "blend_backward": r"blend_backward_kernel",
+    "blur": r"blur_rows_kernel",
+    "blur3": r"moment_rows_kernel<(true|false), 3>|moment_rows_kernelILb[01]ELi3E",
+    "blur5": r"moment_rows_kernel<(true|false), 5>|moment_rows_kernelILb[01]ELi5E",
+    "unchunk_transpose": r"unchunk_transpose_kernel",
+    "issue_probe": r"probe_kernel",
+}
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_HOST_CATS = ("cpu_op", "cuda_runtime")
+TOP = 10
+
+
+def trace_summary(trace_json) -> dict:
+    """What a reader of a `torch.profiler` Chrome trace writes down, all
+    times in microseconds on the trace's clock:
+
+    - `window`: from the first device event's start to the last one's end;
+    - `busy`: the union of the kernel, memcpy and memset intervals over all
+      streams; `idle_share` 1 - busy / window (None without device events);
+    - `launches`: kernel events by name, and `hand_written` those of the
+      nine hand-written kernels by launch counter (`HAND_WRITTEN`);
+    - `top_ops`: the TOP device ops by total time, (name, total, count);
+    - `gaps`: the TOP longest idle stretches inside the window, (start,
+      length, the host op running when it began: the deepest `cpu_op` or
+      `cuda_runtime` span enclosing its start, or None).
+    """
+    events = json.loads(Path(trace_json).read_text())
+    events = events.get("traceEvents", []) if isinstance(events, dict) else events
+    device, host = [], []
+    for e in events:
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        cat = str(e.get("cat", "")).lower()
+        span = (float(e["ts"]), float(e["ts"]) + float(e["dur"]), e.get("name", ""))
+        if cat in _DEVICE_CATS:
+            device.append((*span, cat))
+        elif cat in _HOST_CATS:
+            host.append(span)
+    device.sort()
+    merged = []
+    for t0, t1, _, _ in device:
+        if merged and t0 <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], t1)
+        else:
+            merged.append([t0, t1])
+    window = merged[-1][1] - merged[0][0] if merged else 0.0
+    busy = sum(t1 - t0 for t0, t1 in merged)
+
+    def host_op_at(t):
+        enclosing = [(t0, -(t1 - t0), name) for t0, t1, name in host if t0 <= t < t1]
+        return max(enclosing)[2] if enclosing else None
+
+    gaps = sorted(((b[0] - a[1], a[1]) for a, b in zip(merged, merged[1:]) if b[0] > a[1]), reverse=True)[:TOP]
+    totals, counts, launches = {}, {}, {}
+    for t0, t1, name, cat in device:
+        totals[name] = totals.get(name, 0.0) + (t1 - t0)
+        counts[name] = counts.get(name, 0) + 1
+        if cat == "kernel":
+            launches[name] = launches.get(name, 0) + 1
+    top = sorted(totals, key=totals.get, reverse=True)[:TOP]
+    return {
+        "window": window,
+        "busy": busy,
+        "idle_share": 1.0 - busy / window if window > 0 else None,
+        "launches": launches,
+        "hand_written": {k: sum(c for name, c in launches.items() if re.search(pat, name))
+                         for k, pat in HAND_WRITTEN.items()},
+        "top_ops": [(name, totals[name], counts[name]) for name in top],
+        "gaps": [(start, length, host_op_at(start)) for length, start in gaps],
+    }

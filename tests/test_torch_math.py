@@ -78,6 +78,22 @@ def test_every_8_bit_colour_starts_with_a_gradient():
     assert bool((sh.grad == np.float32(tsh.C0)).all())
 
 
+def test_sh_dc_to_rgb_matches_jax():
+    """The DC band back to RGB (the reference's `SH2RGB`) over the DC values
+    of the 256 8-bit levels and random ones, against JAX's within 1e-7."""
+    levels = np.repeat((np.arange(256, dtype=np.float32) / 255.0)[:, None], 3, axis=1)
+    rng = np.random.default_rng(2)
+    for dc in (np.asarray(jsh.rgb_to_sh(jnp.asarray(levels))), rng.normal(0.0, 0.5, (64, 3)).astype(np.float32)):
+        want = np.asarray(jsh.sh_dc_to_rgb(jnp.asarray(dc)))
+        np.testing.assert_allclose(_np(tsh.sh_dc_to_rgb(_t(dc))), want, atol=1e-7, rtol=0)
+
+
+def test_sh_dc_round_trip_as_jax_holds_it():
+    """JAX's round trip `sh_dc_to_rgb(rgb_to_sh(rgb))` (`tests/test_math_core.py`) over the 256 levels."""
+    levels = np.repeat((np.arange(256, dtype=np.float32) / 255.0)[:, None], 3, axis=1)
+    np.testing.assert_allclose(_np(tsh.sh_dc_to_rgb(tsh.rgb_to_sh(_t(levels)))), levels, rtol=1e-5, atol=1e-6)
+
+
 def test_covariance_matches_jax():
     rng = np.random.default_rng(1)
     q = rng.normal(size=(128, 4)).astype(np.float32)

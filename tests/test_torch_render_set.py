@@ -420,10 +420,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "new = {'compress.vq', 'compress.vectree', 'data.colmap', 'eval.lpips', 'eval.metrics', 'utils.threefry',\n"
         "       'cli.convert', 'cli.vectree', 'cli.metrics', 'cli.full_eval',\n"
         "       'scripts', 'scripts.harness', 'scripts.e2e_hard', 'scripts.e2e_seed_variance', 'scripts.e2e_quality',\n"
-        "       'scripts.bench_render_fps', 'scripts.roofline'}\n"
+        "       'scripts.bench_render_fps', 'scripts.roofline', 'scripts.bench', 'scripts.profile_step',\n"
+        "       'scripts.profile_binning', 'scripts.profile_binning_infer', 'scripts.profile_bwd'}\n"
         "missing = sorted(new - {m.split('.', 1)[1] for m in mods})\n"
         "print(len(mods), bad, missing)\n"
-        "sys.exit(1 if bad or missing or len(mods) < 77 else 0)\n"
+        "sys.exit(1 if bad or missing or len(mods) < 82 else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -12,7 +12,8 @@ roofline tool and the per-scene run scripts of `lightgaussian_tpu_torch/scripts/
 - Every `python -m` line of the ported `run_*.sh` names a
   `lightgaussian_tpu_torch.cli` module whose parser accepts its flags: each
   script runs under bash with `python` replaced by a recorder.
-- Every script's entry point defaults to the card and raises without one.
+- Every script's entry point defaults to the card and raises without one
+  (the measurement layer's too: `bench` and the four profilers).
 """
 import importlib
 import math
@@ -182,6 +183,11 @@ MAINS = {
     "e2e_quality": [],
     "bench_render_fps": [],
     "roofline": [],
+    "bench": [],
+    "profile_step": [],
+    "profile_binning": [],
+    "profile_binning_infer": [],
+    "profile_bwd": [],
 }
 
 
