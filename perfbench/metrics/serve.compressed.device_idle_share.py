@@ -1,0 +1,6 @@
+"""% of an unprofiled served frame of the compressed model the device is idle: 1 - (busy time a frame
+in the profiled window) / (wall time a frame of the unprofiled window before it)."""
+
+
+def read(r):
+    return r.idle_share("frame")

@@ -1,0 +1,8 @@
+"""% of the blend kernels' device time in a training step that their least time
+is: the exact blend (B1) and its backward (B2), over every launch of the
+profiled steps, against the least time of the pairs the frozen walk counts on
+those steps' own inputs (perfbench/counting)."""
+
+
+def read(r):
+    return r.roofline("step", "blend_forward", "blend_backward")

@@ -1,0 +1,6 @@
+"""Kernel launches a training step: kernel events of the profiled window over
+its steps (autograd, eager and hand-written launches alike)."""
+
+
+def read(r):
+    return r.launches("step")
