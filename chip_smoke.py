@@ -200,8 +200,8 @@ Phases, each of which exits non-zero on failure:
      autograd blend hands B2 for the same cotangent); and last
      `profile_step` (its pieces, and a `torch.profiler` trace of 5 bench
      steps read through by `harness.trace_summary`: each hand-written
-     kernel's launches in the trace equal the counters', the idle share
-     lies in [0, 1); the top ops and longest gaps printed). The trace runs
+     kernel's launches in the trace equal the counters', the busy time
+     lies within the trace's window; the top ops and longest gaps printed). The trace runs
      last: in a process after a profiler session the host runs ops more
      slowly. First, `sh_dc_to_rgb` of the 256 levels'
      DC values on the card equals the CPU's bit for bit.
@@ -2818,11 +2818,11 @@ def phase10(s: Smoke, tmp: Path) -> dict:
     tr, counted = r["trace"], r["launches"]
     traced = {k: tr["hand_written"].get(k, 0) for k in counted}
     s.say(f"  profile_step: trace of {r['trace_steps']} bench steps, hand-written launches {traced}, the counters "
-          f"{counted}; idle share {tr['idle_share']}")
+          f"{counted}; busy {tr['busy']} of a {tr['window']} us window")
     if traced != counted or not counted["blend_backward"]:
         fail(f"the trace's hand-written launches {traced} are not the counters' {counted}")
-    if tr["idle_share"] is None or not 0.0 <= tr["idle_share"] < 1.0:
-        fail(f"the trace's idle share {tr['idle_share']} lies outside [0, 1)")
+    if not 0.0 < tr["busy"] <= tr["window"]:
+        fail(f"the trace's busy time {tr['busy']} us lies outside its window of {tr['window']} us")
 
     print("phase 10 ok", flush=True)
     return paths

@@ -64,6 +64,7 @@ def build_binning(
     return b
 
 
+@stage_marks.in_unit("frame")
 def render(
     scene: GaussianScene,
     camera: Camera,
@@ -83,7 +84,10 @@ def render(
 
     `cached_binning` (from `build_binning`) renders over a keyframe's order,
     forward only; it fixes the capacity, so `max_instances` must not be
-    given with it, and `num_instances` reports the keyframe's total."""
+    given with it, and `num_instances` reports the keyframe's total.
+
+    A render that no step encloses is a unit of the spans, a frame
+    (`utils.stage_marks.in_unit`)."""
     splats = preprocess(
         scene,
         camera,

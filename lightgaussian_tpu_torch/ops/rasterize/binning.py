@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from lightgaussian_tpu_torch.ops.rasterize.projection import ALPHA_EPS, Splats
+from lightgaussian_tpu_torch.utils import stage_marks
 
 TILE_SIZE = 32  # 32x32 px per tile, as in the JAX package
 
@@ -315,6 +316,7 @@ def _gather_features(splats: Splats, gid_s: torch.Tensor) -> torch.Tensor:
     return pack_features(splats)[gid_s].contiguous()
 
 
+@stage_marks.in_span("binning")
 def bin_splats(splats: Splats, grid: TileGrid, max_instances: int) -> Binning:
     """Binning for the blends and the blend backward. The backward needs
     only `gid_sorted` (its kernel adds each instance's gradient to its

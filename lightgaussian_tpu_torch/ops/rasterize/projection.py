@@ -16,6 +16,7 @@ from lightgaussian_tpu_torch.models.camera import Camera
 from lightgaussian_tpu_torch.models.gaussians import GaussianScene
 from lightgaussian_tpu_torch.ops import covariance as cov_ops
 from lightgaussian_tpu_torch.ops import sh as sh_ops
+from lightgaussian_tpu_torch.utils import stage_marks
 
 NEAR_PLANE = 0.2  # the CUDA reference culls p_view.z <= 0.2
 ALPHA_EPS = 1.0 / 255.0  # min alpha to blend
@@ -42,6 +43,7 @@ def view_colors(scene: GaussianScene, camera: Camera) -> torch.Tensor:
     return sh_ops.sh_to_rgb(scene.active_sh_degree, scene.sh_coeffs, dirs)
 
 
+@stage_marks.in_span("projection")
 def preprocess(
     scene: GaussianScene,
     camera: Camera,
@@ -56,6 +58,11 @@ def preprocess(
     (the training step differentiates through it for densification).
     `colors_precomp` / `cov3d_precomp` override the SH colors and the
     covariance built from scales and rotations.
+
+    In the spans (`utils.stage_marks`), "covariance" (the 3D and 2D
+    covariance, conic and radius) and "sh" (the colour) lie inside
+    "projection", which holds the rest: the means' projection and the
+    culling.
     """
     means = scene.means
     wv = camera.world_view
@@ -76,29 +83,31 @@ def preprocess(
     size = torch.tensor([camera.width, camera.height], dtype=torch.float32, device=means.device)
     mean2d = ((ndc + 1.0) * size - 1.0) * 0.5
 
-    if cov3d_precomp is not None:
-        cov3d = cov_ops.unstrip_symmetric(cov3d_precomp)
-    else:
-        cov3d = cov_ops.build_covariance_3d(scene.scales, scene.quats, scale_modifier)
-    Wr = wv[:3, :3]
-    # W @ Sigma @ W^T component-wise.
-    tmp = torch.sum(Wr[None, :, None, :] * cov3d[:, None, :, :], dim=-1)  # [N,3,3]
-    cov_cam = torch.sum(tmp[:, :, None, :] * Wr[None, None, :, :], dim=-1)
-    cov2d = cov_ops.ewa_project(
-        p_view, cov_cam, camera.focal_x, camera.focal_y, camera.tan_fovx, camera.tan_fovy
-    )
-    a, b, c = cov2d[:, 0], cov2d[:, 1], cov2d[:, 2]
-    det = a * c - b * b
-    det_valid = det > 0.0
-    inv_det = torch.where(det_valid, 1.0 / torch.where(det_valid, det, 1.0), 0.0)
-    conic = torch.stack([c * inv_det, -b * inv_det, a * inv_det], dim=-1)
+    with stage_marks.span("covariance"):
+        if cov3d_precomp is not None:
+            cov3d = cov_ops.unstrip_symmetric(cov3d_precomp)
+        else:
+            cov3d = cov_ops.build_covariance_3d(scene.scales, scene.quats, scale_modifier)
+        Wr = wv[:3, :3]
+        # W @ Sigma @ W^T component-wise.
+        tmp = torch.sum(Wr[None, :, None, :] * cov3d[:, None, :, :], dim=-1)  # [N,3,3]
+        cov_cam = torch.sum(tmp[:, :, None, :] * Wr[None, None, :, :], dim=-1)
+        cov2d = cov_ops.ewa_project(
+            p_view, cov_cam, camera.focal_x, camera.focal_y, camera.tan_fovx, camera.tan_fovy
+        )
+        a, b, c = cov2d[:, 0], cov2d[:, 1], cov2d[:, 2]
+        det = a * c - b * b
+        det_valid = det > 0.0
+        inv_det = torch.where(det_valid, 1.0 / torch.where(det_valid, det, 1.0), 0.0)
+        conic = torch.stack([c * inv_det, -b * inv_det, a * inv_det], dim=-1)
 
-    # Pixel radius from the larger eigenvalue (3 sigma).
-    mid = 0.5 * (a + c)
-    lambda1 = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
-    radius_f = torch.ceil(3.0 * torch.sqrt(lambda1))
+        # Pixel radius from the larger eigenvalue (3 sigma).
+        mid = 0.5 * (a + c)
+        lambda1 = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
+        radius_f = torch.ceil(3.0 * torch.sqrt(lambda1))
 
-    color = colors_precomp if colors_precomp is not None else view_colors(scene, camera)
+    with stage_marks.span("sh"):
+        color = colors_precomp if colors_precomp is not None else view_colors(scene, camera)
 
     valid = scene.alive & (depth > NEAR_PLANE) & det_valid
     radius = torch.where(valid, radius_f, 0.0).to(torch.int32)

@@ -151,7 +151,8 @@ def trace_summary(trace_json) -> dict:
 
     - `window`: from the first device event's start to the last one's end;
     - `busy`: the union of the kernel, memcpy and memset intervals over all
-      streams; `idle_share` 1 - busy / window (None without device events);
+      streams (the idle share of a step divides it by a step run without the
+      profiler, which slows the host: `profile_step` does);
     - `launches`: kernel events by name, and `hand_written` those of the
       nine hand-written kernels by launch counter (`HAND_WRITTEN`);
     - `top_ops`: the TOP device ops by total time, (name, total, count);
@@ -196,7 +197,6 @@ def trace_summary(trace_json) -> dict:
     return {
         "window": window,
         "busy": busy,
-        "idle_share": 1.0 - busy / window if window > 0 else None,
         "launches": launches,
         "hand_written": {k: sum(c for name, c in launches.items() if re.search(pat, name))
                          for k, pat in HAND_WRITTEN.items()},

@@ -13,13 +13,13 @@ target with its SSIM moments cached).
       moments.
   (ii) One `torch.profiler` trace of `--trace_steps` bench steps, written to
       `<out_root>/profile_step_trace.json` and read through by
-      `harness.trace_summary`: the device's window, busy time and idle
-      share, launches by kernel (the hand-written ones by launch counter,
-      beside the counters' own count over the same steps), the device ops
-      with the most time, and the longest idle gaps with the host op that
-      was running when each began. The profiler slows the host, so the
-      trace's idle share overstates a plain step's: beside it, the device's
-      busy time a step over the whole step's time from (i).
+      `harness.trace_summary`: the device's window and busy time, launches
+      by kernel (the hand-written ones by launch counter, beside the
+      counters' own count over the same steps), the device ops with the
+      most time, and the longest idle gaps with the host op that was
+      running when each began. The profiler slows the host, so the idle
+      share is the device's busy time a step over the whole step's time
+      from (i), measured without it.
 
 `--trace PATH` reads an existing trace instead (for one, the trainer's:
 `train_densify_prune --profile_dir`) and times nothing.
@@ -104,9 +104,7 @@ def trace_steps(dev: torch.device, steps: int, path: Path) -> dict:
 
 
 def print_summary(summary: dict, steps: int | None) -> None:
-    window, busy, idle = summary["window"], summary["busy"], summary["idle_share"]
-    print(f"  device window {window / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, idle share "
-          f"{'none (no device events)' if idle is None else f'{idle:.4f}'}")
+    print(f"  device window {summary['window'] / 1e3:.3f} ms, busy {summary['busy'] / 1e3:.3f} ms")
     per = f" a step (over {steps})" if steps else " (the whole trace)"
     hand = {k: v / (steps or 1) for k, v in summary["hand_written"].items() if v}
     print(f"  hand-written launches{per}: {hand}")

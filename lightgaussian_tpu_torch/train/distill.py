@@ -11,7 +11,9 @@ On the card a step renders the teacher without a graph (the exact kernel
 B1, or the render-only B6 with `teacher_fast`) and the student with one
 (B1, backward B2). The teacher's image changes every step, so no target
 moments are cached: the SSIM runs all five moments (B7) forward and the
-blur (B4) over their 15 planes backward.
+blur (B4) over their 15 planes backward. The step marks the ends of its
+stages with `utils.stage_marks` as the training step does, the teacher's
+render adding to the same stages as the student's.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from lightgaussian_tpu_torch.ops.rasterize import render
 from lightgaussian_tpu_torch.train import optim
 from lightgaussian_tpu_torch.train.state import TrainState
 from lightgaussian_tpu_torch.train.step import StepMetrics, adam_step, gradients, param_leaves
+from lightgaussian_tpu_torch.utils import stage_marks
 from lightgaussian_tpu_torch.utils.general import exponential_decay_every
 
 
@@ -46,6 +49,7 @@ def make_distill_step(
     lr_fns = optim.make_lr_fns(opt_cfg, spatial_lr_scale)
     lr_mult_fn = exponential_decay_every(gamma, gamma_every)
 
+    @stage_marks.in_unit("step")
     def distill_step(state: TrainState, teacher: GaussianScene, camera: Camera, bg: torch.Tensor):
         with torch.no_grad():
             teacher_img = render(teacher, camera, bg, max_instances=max_instances, fast=teacher_fast).render
@@ -54,9 +58,12 @@ def make_distill_step(
         l1 = losses.l1_loss(out.render, teacher_img)
         ssim_v = losses.ssim(out.render, teacher_img)
         loss = (1.0 - opt_cfg.lambda_dssim) * l1 + opt_cfg.lambda_dssim * (1.0 - ssim_v)
+        stage_marks.mark("loss forward")
         grads, _ = gradients(loss, params, frozen_fields)
+        stage_marks.mark("preprocess backward")
         with torch.no_grad():
             scene, new_opt = adam_step(state, grads, lr_fns, lr_mult_fn)
+            stage_marks.mark("Adam")
             metrics = StepMetrics(
                 loss=loss.detach(),
                 l1=l1.detach(),

@@ -64,6 +64,7 @@ def make_train_step(
     lr_fns = optim.make_lr_fns(opt_cfg, spatial_lr_scale)
     B = camera_batch
 
+    @stage_marks.in_unit("step")
     def step(state: TrainState, cameras: list[Camera], bg: torch.Tensor):
         cameras = stack_cameras(cameras)
         if len(cameras) != B:
