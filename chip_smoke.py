@@ -5,7 +5,7 @@ Usage: python3 chip_smoke.py        (from the repository root; needs one CUDA ca
 
 Phases, each of which exits non-zero on failure:
   1. The card (nvidia-smi name and power limit) and the kernels' build: the
-     five CUDA sources compiled at once, one nvcc each, with ptxas's
+     six CUDA sources compiled at once, one nvcc each, with ptxas's
      registers, spills and shared memory for every kernel (the forward,
      counting and backward blends, their tile-ordering kernel included).
   2. Each kernel against its plain PyTorch version on the card:
@@ -52,7 +52,15 @@ Phases, each of which exits non-zero on failure:
        128), (3, 40, 128) and (7680, 16, 128);
      - the issue-rate probe's seven chains (P) against the same recurrences
        in elementwise torch: the float chains bit for bit, the approximate
-       units, the shuffle sum and the scan at 1e-5.
+       units, the shuffle sum and the scan at 1e-5;
+     - binning's tile cover (`lg_bin_cover`) against the torch chain it
+       replaces (`binning.plain_cover`) on each kind of the stress set
+       (`synthetic.cover_stress_splats`: rects over 32 tiles, opacities at
+       and just above 1/255, means off-screen, behind the camera and
+       non-finite, radius 0, ellipses grazing a neighbouring tile's box) at
+       1237x822, and on the whole set as column views of one array: count
+       and mask equal on every Gaussian, lo_x, lo_y and hi_x where the
+       count is positive.
   3. The serving path at full width: a 300k-Gaussian SH-3 scene at
      1920x1080 saved as a PLY, a Blender-format source with 8 test cameras,
      and `lightgaussian_tpu_torch.cli.render_sets` writing their PNGs through
@@ -67,7 +75,10 @@ Phases, each of which exits non-zero on failure:
      (COUNT_RATIO_TOL), with the number of Gaussians that differ printed.
      The chunk transpose is timed beside `permute(0, 2, 1).contiguous()`,
      and the probe's rates are printed beside the two constants the bounds
-     assume.
+     assume. Last, the tile cover on a 3 M-Gaussian scene drawn like the
+     benchmark's 3dgs-m360 at 1237x822 from two ring angles, equal to the
+     chain as in phase 2, then timed (CUDA events over 20 launches) beside
+     its byte bound and the chain's time.
   4. Training at full width: the same scene rendered exactly from the 8
      views is the ground truth; a copy with seeded noise on colour, opacity
      and position trains against it for 24 steps of `make_train_step` (the
@@ -205,8 +216,12 @@ Phases, each of which exits non-zero on failure:
      last: in a process after a profiler session the host runs ops more
      slowly. First, `sh_dc_to_rgb` of the 256 levels'
      DC values on the card equals the CPU's bit for bit.
-Each phase ends with its own seconds. Then a `{"kernels": [...]}` line of the
-nine kernels, the card line, and the final `{"ok": true, "device": {...}}`
+From phase 3 on, every binning launches the tile cover once: a path's
+expected launches hold one `bin_cover` a render (a B1, B6 or B5 launch),
+and the paths that bin otherwise (cached trajectory frames, the binning
+profiler, the FPS study, the roofline tool) give their own count. Each
+phase ends with its own seconds. Then a `{"kernels": [...]}` line of the
+ten kernels, the card line, and the final `{"ok": true, "device": {...}}`
 line.
 
 Bounds. `bound_ms` is the least time the card could take for a kernel's
@@ -416,6 +431,17 @@ BENCH_FINE_STEP_DIV = 20000
 BENCH_BATCH_ARGS = ("--batch", "2", "--repeats", "3", "--iters", "3")
 PIECES_RATIO = (0.7, 1.5)  # sum of the binning pieces over the whole; outside it the split misses or repeats work
 FRESH_VS_SERVING = 1.5
+# The tile cover (csrc/bin_cover.cu) against the torch chain: each kind of `synthetic.COVER_STRESS_KINDS` at the
+# benchmark's 1237x822, and a scene drawn like perfbench/configs/3dgs-m360.json's (3 M Gaussians, means in a cube
+# of half-width 2, log-scales uniform in [log 0.004, log 0.02], SH 3) seen from its ring (eye (5 sin t, 0.6,
+# -5 cos t), fovx 0.9).
+COVER_SIZE = (1237, 822)
+COVER_STRESS_N = 65_536
+COVER_SCENE_N = 3_000_000
+COVER_BYTES = 28 + 40  # a Gaussian's mean, conic, opacity and radius in; five int64 out
+COVER_TARGET_MS = 0.15
+# A render bins once for its one blend (B1, B6 or B5); B2 blends over its step's binning.
+RENDER_BLENDS = ("blend_forward", "blend_forward_fast", "blend_count")
 
 
 def fail(msg: str) -> None:
@@ -521,17 +547,18 @@ class Smoke:
 
 def build_kernels(s: Smoke) -> None:
     from lightgaussian_tpu_torch.ops import losses
-    from lightgaussian_tpu_torch.ops.rasterize import blend
+    from lightgaussian_tpu_torch.ops.rasterize import binning, blend
     from lightgaussian_tpu_torch.utils import cuda_build, issue_probe
 
     t0 = time.perf_counter()
     libs = cuda_build.build(blend.FORWARD_SOURCE, blend.BACKWARD_SOURCE, losses.SOURCE,
-                            blend.UNCHUNK_SOURCE, issue_probe.SOURCE)
+                            blend.UNCHUNK_SOURCE, issue_probe.SOURCE, binning.COVER_SOURCE)
     blend._forward_library()
     blend._backward_library()
     losses._library()
     blend._unchunk_library()
     issue_probe._library()
+    binning._library()
     s.say(f"phase 1 ok: built {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         print(f"-- {lib.with_suffix('.log').name}")
@@ -540,20 +567,29 @@ def build_kernels(s: Smoke) -> None:
 
 def reset_counts() -> None:
     from lightgaussian_tpu_torch.ops import losses
-    from lightgaussian_tpu_torch.ops.rasterize import blend
+    from lightgaussian_tpu_torch.ops.rasterize import binning, blend
     from lightgaussian_tpu_torch.utils import issue_probe
 
     blend.reset_launch_counts()
     losses.reset_launch_counts()
     issue_probe.reset_launch_counts()
+    binning.reset_launch_counts()
 
 
 def read_counts() -> dict:
     from lightgaussian_tpu_torch.ops import losses
-    from lightgaussian_tpu_torch.ops.rasterize import blend
+    from lightgaussian_tpu_torch.ops.rasterize import binning, blend
     from lightgaussian_tpu_torch.utils import issue_probe
 
-    return {**blend.LAUNCHES, **losses.LAUNCHES, **issue_probe.LAUNCHES}
+    return {**blend.LAUNCHES, **losses.LAUNCHES, **issue_probe.LAUNCHES, **binning.LAUNCHES}
+
+
+def expected(counts: dict, want: dict) -> dict:
+    """`want` over the keys of `counts`, 0 where it names none, with the
+    cover kernel's launches: one a binning, by default one binning a render
+    (RENDER_BLENDS); a path that bins otherwise names them."""
+    want = {"bin_cover": sum(want.get(k, 0) for k in RENDER_BLENDS), **want}
+    return {k: want.get(k, 0) for k in counts}
 
 
 def blend_bounds(pairs: dict, f32_min: dict, mufu_min: dict, f32_walk: dict, mufu_walk: dict, n_bytes: int):
@@ -870,6 +906,7 @@ def phase2(s: Smoke) -> dict:
     counts = read_counts()
     if counts["unchunk_transpose"] != len(UNCHUNK_SHAPES) or counts["issue_probe"] < 7:
         fail(f"B8 or the probe did not count its launches: {counts}")
+    hold_cover_stress(s)
 
     gen = torch.Generator(device=s.dev).manual_seed(7)
     n_un = math.prod(BLUR_UNALIGNED_SHAPE)
@@ -980,6 +1017,87 @@ def time_counting_kernel(s: Smoke, b, grid, n: int) -> None:
           f"computes it, library_ms null")
 
 
+def hold_cover(s: Smoke, splats, grid, what: str) -> dict:
+    """The cover kernel (`binning._cover` on the card) against the torch
+    chain (`binning.plain_cover`, on the card too): count and mask equal on
+    every Gaussian, the rect's lo_x, lo_y and hi_x where the count is
+    positive (nothing reads them elsewhere; the chain casts NaN there).
+    Returns a census of the splats."""
+    from lightgaussian_tpu_torch.ops.rasterize import binning
+
+    torch = s.torch
+    launched = binning.LAUNCHES["bin_cover"]
+    got = binning._cover(splats, grid)
+    s.sync()
+    if binning.LAUNCHES["bin_cover"] != launched + 1:
+        fail(f"the cover on {what} did not launch its kernel once")
+    want = binning.plain_cover(splats, grid)
+    live = want.count > 0
+    bad = {f: int((getattr(got, f) != getattr(want, f)).sum()) for f in ("count", "mask")}
+    bad.update({f: int((getattr(got, f) != getattr(want, f))[live].sum()) for f in ("lo_x", "lo_y", "hi_x")})
+    census = {"gaussians": int(live.numel()), "live": int(live.sum()), "instances": int(want.count.sum()),
+              "over_32_tiles": int(((want.mask == 0) & live).sum())}
+    s.say(f"  bin_cover vs the torch chain on {what}: {census}; differing count, mask (all) and lo_x, lo_y, hi_x "
+          f"(live): {bad}")
+    if any(bad.values()) or any(getattr(got, f).dtype != torch.int64 for f in got._fields):
+        fail(f"the cover kernel differs from the torch chain on {what}")
+    return census
+
+
+def hold_cover_stress(s: Smoke) -> None:
+    """The cover kernel bit for bit against the chain on every kind of the
+    stress set, and on the whole set as strided views of one packed array."""
+    from lightgaussian_tpu_torch.ops.rasterize import binning
+    from lightgaussian_tpu_torch.ops.rasterize.projection import Splats
+    from lightgaussian_tpu_torch.utils import synthetic
+
+    torch = s.torch
+    grid = binning.make_grid(*COVER_SIZE)
+    parts = []
+    for i, kind in enumerate(synthetic.COVER_STRESS_KINDS):
+        splats = synthetic.cover_stress_splats(kind, COVER_STRESS_N, *COVER_SIZE, seed=20 + i, device=s.dev)
+        hold_cover(s, splats, grid, f"the {kind} stress set ({COVER_STRESS_N} at {COVER_SIZE[0]}x{COVER_SIZE[1]})")
+        parts.append(splats)
+    packed = torch.cat([torch.cat([p.mean2d, p.conic, p.opacity[:, None]], 1) for p in parts])
+    radius = torch.cat([p.radius for p in parts])
+    views = Splats(mean2d=packed[:, 0:2], conic=packed[:, 2:5], color=torch.cat([p.color for p in parts]),
+                   opacity=packed[:, 5], depth=torch.cat([p.depth for p in parts]), radius=radius)
+    hold_cover(s, views, grid, "the whole stress set as column views of one [N, 6] array")
+
+
+def time_cover(s: Smoke) -> None:
+    """The cover kernel at the benchmark's size: bit for bit against the
+    chain on a 3 M-Gaussian scene drawn like 3dgs-m360's, then its time
+    beside its byte bound and the chain's time."""
+    from lightgaussian_tpu_torch.models.camera import Camera
+    from lightgaussian_tpu_torch.ops.rasterize import binning
+    from lightgaussian_tpu_torch.ops.rasterize.projection import preprocess
+    from lightgaussian_tpu_torch.utils.synthetic import random_scene
+
+    torch = s.torch
+    scene = random_scene(n=COVER_SCENE_N, seed=17, extent=2.0, scale_range=(0.004, 0.02), active_sh_degree=3,
+                         device=s.dev)
+    grid = binning.make_grid(*COVER_SIZE)
+    for t in (0.0, 2.0):
+        cam = Camera.look_at(orbit_eye(t), [0, 0, 0], fovx=0.9, width=COVER_SIZE[0], height=COVER_SIZE[1],
+                             device=s.dev)
+        with torch.no_grad():
+            splats = preprocess(scene, cam)
+        census = hold_cover(s, splats, grid, f"the 3 M scene from ring angle {t} at {COVER_SIZE[0]}x{COVER_SIZE[1]}")
+    del scene
+    k_ms = s.event_ms(lambda: binning._cover(splats, grid))
+    plain_ms = s.host_ms(lambda: binning.plain_cover(splats, grid))
+    n_bytes = COVER_BYTES * COVER_SCENE_N
+    bound = s.row("bin_cover", "bin_cover.cu", "none: tile_rect + _exact_tile_mask of "
+                  "lightgaussian_tpu/ops/rasterize/binning.py are XLA ops", 0.0, k_ms, plain_ms, 0.0,
+                  n_bytes / PEAK_BYTES, None)
+    s.say(f"  bin_cover at 3 M Gaussians, {COVER_SIZE[0]}x{COVER_SIZE[1]} ({census['live']} live, "
+          f"{census['instances']} instances): {k_ms:.4f} ms/launch (CUDA events, {TIMING_REPS} launches; target "
+          f"{COVER_TARGET_MS} ms), bound {bound:.4f} ms ({n_bytes / 1e6:.0f} MB at {PEAK_BYTES / 1e12:.2f} TB/s, "
+          f"{n_bytes / k_ms / 1e6:.0f} GB/s achieved), the torch chain {plain_ms:.3f} ms (host, median of "
+          f"{PLAIN_REPS}); no PyTorch call computes a tile cover, library_ms null")
+
+
 def time_tools(s: Smoke) -> None:
     """B8 at the JAX package's profiled shape beside `contiguous()`, and the
     probe's rates beside the constants the bounds assume. Neither lies on a
@@ -1080,7 +1198,7 @@ def phase3(s: Smoke, tmp: Path) -> dict:
     launches_cli = read_counts()
     s.say(f"  render_sets CLI: {N_VIEWS} views in {cli_s:.2f} s incl. loading and PNG I/O; "
           f"launches {launches_cli}")
-    if launches_cli["blend_forward_fast"] != N_VIEWS or sum(launches_cli.values()) != N_VIEWS:
+    if launches_cli != expected(launches_cli, {"blend_forward_fast": N_VIEWS}):
         fail(f"the CLI made launches {launches_cli} for {N_VIEWS} views")
     renders = sorted((model / "test" / "ours_1" / "renders").glob("*.png"))
     if len(renders) != N_VIEWS:
@@ -1102,7 +1220,7 @@ def phase3(s: Smoke, tmp: Path) -> dict:
     s.sync()
     launches_exact = read_counts()
     s.say(f"  exact render(): {N_VIEWS} views, launches {launches_exact}")
-    if launches_exact["blend_forward"] != N_VIEWS or sum(launches_exact.values()) != N_VIEWS:
+    if launches_exact != expected(launches_exact, {"blend_forward": N_VIEWS}):
         fail(f"render() made launches {launches_exact} for {N_VIEWS} views")
     for out in exact:
         if not torch.isfinite(out.render).all() or not 0 < out.num_instances <= cap:
@@ -1139,6 +1257,7 @@ def phase3(s: Smoke, tmp: Path) -> dict:
     time_blend_kernels(s, b0, grid)
     time_counting_kernel(s, b0, grid, loaded.capacity)
     time_tools(s)
+    time_cover(s)
     print("phase 3 ok", flush=True)
     return launches_cli
 
@@ -1304,7 +1423,7 @@ def phase4(s: Smoke, blur_errors: dict) -> dict:
         l1 = statistics.fmean(float(eval_render(sc, c, bg)[1]) for c in cams)
         s.sync()
         counts = read_counts()
-        if counts["blend_forward"] != N_VIEWS or counts["blur5"] != N_VIEWS or sum(counts.values()) != 2 * N_VIEWS:
+        if counts != expected(counts, {"blend_forward": N_VIEWS, "blur5": N_VIEWS}):
             fail(f"make_eval_render made launches {counts} for {N_VIEWS} views")
         return l1, counts
 
@@ -1327,8 +1446,8 @@ def phase4(s: Smoke, blur_errors: dict) -> dict:
         step_loss.append(float(m.loss))
     train_counts = read_counts()
     s.say(f"  {TRAIN_STEPS} training steps: launches {train_counts}")
-    per_step = ("blend_forward", "blend_backward", "blur3", "blur")
-    if any(train_counts[k] != TRAIN_STEPS for k in per_step) or sum(train_counts.values()) != 4 * TRAIN_STEPS:
+    per_step = ("blend_forward", "blend_backward", "blur3", "blur", "bin_cover")
+    if train_counts != expected(train_counts, {k: TRAIN_STEPS for k in per_step}):
         fail(f"the training steps made launches {train_counts}, not one each of {per_step} a step")
     s.say(f"  loss per step: {', '.join(f'{v:.5f}' for v in step_loss)}")
     if not all(math.isfinite(v) for v in step_loss):
@@ -1520,17 +1639,16 @@ def phase5(s: Smoke, tmp: Path) -> dict:
     counts = read_counts()
     n_eval = len(CLI_TEST_AT) * (N_TEST_VIEWS + min(REPORT_TRAIN_VIEWS, N_VIEWS))
     n_sweeps = 2  # the prune, and the imp_score export at the last checkpoint
-    want = {
+    want = expected(counts, {
         "blend_forward": CLI_ITERATIONS + n_eval, "blend_backward": CLI_ITERATIONS, "blur3": CLI_ITERATIONS,
         "blur": CLI_ITERATIONS + N_VIEWS, "blur5": n_eval, "blend_count": N_VIEWS * n_sweeps,
-        "blend_forward_fast": 0, "unchunk_transpose": 0, "issue_probe": 0,
-    }
+    })
     s.say(f"  trainer CLI: {CLI_ITERATIONS} iterations in {wall:.2f} s wall incl. loading {N_VIEWS + N_TEST_VIEWS} "
           f"PNGs, the point-cloud start, reports and saves; launches {counts}")
     s.say(f"  expected: B1 {CLI_ITERATIONS} steps + {n_eval} evaluated views ({len(CLI_TEST_AT)} reports x "
           f"({N_TEST_VIEWS} test + {min(REPORT_TRAIN_VIEWS, N_VIEWS)} train views), one exact render and one "
           f"five-moment SSIM each), B2 and B3 one a step, B4 one a step + {N_VIEWS} train cameras at set-up, "
-          f"B5 {N_VIEWS} cameras x {n_sweeps} sweeps, B7 {n_eval}")
+          f"B5 {N_VIEWS} cameras x {n_sweeps} sweeps, B7 {n_eval}, the cover one a render")
     if counts != want:
         fail(f"the trainer made launches {counts}, expected {want}")
 
@@ -1667,7 +1785,7 @@ def phase5(s: Smoke, tmp: Path) -> dict:
 
 
 def _launches_of(s: Smoke, what: str, counts: dict, want: dict) -> None:
-    want = {k: want.get(k, 0) for k in counts}
+    want = expected(counts, want)
     s.say(f"  {what}: launches {counts}")
     if counts != want:
         fail(f"{what} made launches {counts}, expected {want}")
@@ -1862,8 +1980,11 @@ def phase6(s: Smoke, tmp: Path) -> dict:
                            r"and (rendering|binning)", text)
         renders_again = sum(g[3] == "rendering" for g in grows)
         paths[f"render_video {what}"] = read_counts()
+        # a frame that rebins (fresh, or a keyframe whose binning the next frames reuse) bins once, and again
+        # when it grows the cut; a reused frame does not bin
+        bins = sum(plan_ell if what == "ellipse" else plan) + len(grows)
         _launches_of(s, f"render_video --{what}", paths[f"render_video {what}"],
-                     {"blend_forward_fast": VIDEO_FRAMES + renders_again})
+                     {"blend_forward_fast": VIDEO_FRAMES + renders_again, "bin_cover": bins})
         pngs = sorted((out_c / render_sets.TRAJECTORY_DIRS[what] / f"ours_{DISTILL_TO}").glob("*.png"))
         if len(pngs) != VIDEO_FRAMES:
             fail(f"render_video --{what} wrote {len(pngs)} frames, not {VIDEO_FRAMES}")
@@ -2279,7 +2400,7 @@ def _phase8_rank(rank: int, world: int, store: str, tmp: str) -> None:
         reset_counts()
         r, ms = timed(fn)
         counts = read_counts()
-        want = {k: want.get(k, 0) for k in counts}
+        want = expected(counts, want)
         if counts != want:
             fail(f"rank {rank}: {what} made launches {counts}, expected {want}")
         out[what] = {"launches": counts, "ms": ms}
@@ -2660,7 +2781,12 @@ def phase9(s: Smoke, tmp: Path) -> dict:
         # a frame a pass (the totals, A, B after warm-up, C, D) and two a reused frame in each PSNR sweep
         fast = (n + 2 * (warm + n) + (warm + n) + 2 * (n - key_c) + (warm + n)
                 + (2 * (n - b["n_rebin"]) if b["n_rebin"] < n else 0))
-        _launches_of(s, what, paths[what], {"blend_forward": 1, "blend_forward_fast": fast})
+        # binnings: the first frame's live count, the totals, A and B with warm-up, each schedule's warm-up
+        # keyframe and its rebinned frames, and a frame a PSNR sweep (a reused frame's fresh render, a keyframe's
+        # binning)
+        bins = (1 + n + 2 * (warm + n) + (1 + key_c) + n + (1 + b["n_rebin"])
+                + (n if b["n_rebin"] < n else 0))
+        _launches_of(s, what, paths[what], {"blend_forward": 1, "blend_forward_fast": fast, "bin_cover": bins})
         gated = ("D",) if not extra else ("C", "D")
         for k in gated:
             if not b["worst_psnr"][k] > REUSED_PSNR_MIN:
@@ -2678,7 +2804,8 @@ def phase9(s: Smoke, tmp: Path) -> dict:
     steps = roofline.STEP_REPS + 3  # and three warm-up steps
     _launches_of(s, "roofline", paths["roofline"], {
         "issue_probe": len(issue_probe.KINDS) * 2 * (1 + issue_probe.REPS), "blend_forward": steps + 1,
-        "blend_backward": steps, "blur3": steps, "blur": steps + 1})
+        "blend_backward": steps, "blur3": steps, "blur": steps + 1,
+        "bin_cover": steps + 2})  # and section (b)'s binning, whose order it gathers by
     stream = rl["memory"]["stream_bytes_per_s"]
     s.say(f"  roofline: measured stream {stream / 1e12:.4f} TB/s against PEAK_BYTES {PEAK_BYTES / 1e12:.2f} TB/s "
           f"({stream / PEAK_BYTES:.3f}); the step's stages {rl['step']['step_ms']:.3f} ms against a byte floor of "
@@ -2692,21 +2819,22 @@ def phase9(s: Smoke, tmp: Path) -> dict:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Within it, the training path's kernels (B1, B2, B3, B4) run their
-    plain PyTorch versions on the card: the callers reach the wrappers as
-    module attributes."""
+    """Within it, the training path's kernels (B1, B2, B3, B4 and the tile
+    cover) run their plain PyTorch versions on the card: the callers reach
+    the wrappers as module attributes."""
     from lightgaussian_tpu_torch.ops import losses
-    from lightgaussian_tpu_torch.ops.rasterize import blend
+    from lightgaussian_tpu_torch.ops.rasterize import binning, blend
 
-    saved = (blend.blend_forward, blend.blend_backward, losses.blur, losses.blur3)
+    saved = (blend.blend_forward, blend.blend_backward, losses.blur, losses.blur3, binning._cover)
     blend.blend_forward = lambda ts, inst, grid: blend.plain_blend(ts, inst, grid, exact=True)[:2]
     blend.blend_backward = lambda ts, inst, gid, tg, tr, grid, n: blend.reduce_per_gaussian(
         blend.plain_blend_backward(ts, inst, tg, tr, grid)[0], gid, n)
     losses.blur, losses.blur3 = losses.plain_blur, losses.plain_blur3
+    binning._cover = binning.plain_cover
     try:
         yield
     finally:
-        blend.blend_forward, blend.blend_backward, losses.blur, losses.blur3 = saved
+        blend.blend_forward, blend.blend_backward, losses.blur, losses.blur3, binning._cover = saved
 
 
 def phase10(s: Smoke, tmp: Path) -> dict:
@@ -2741,7 +2869,8 @@ def phase10(s: Smoke, tmp: Path) -> dict:
         want = args.batch * bench.WIDTH * bench.HEIGHT / (line["median_ms"] * 1e-3)
         if set(line) != {"metric", "value", "unit", "median_ms", "spread_ms", "groups"} or abs(line["value"] - want) > 0.5:
             fail(f"{label}: the line {line} does not hold value = pixels / median ({want:.1f})")
-    # the bench step's gradients against the same loss through the plain versions of B1-B4, by B2's rules
+    # the bench step's gradients against the same loss through the plain versions of B1-B4 and the cover, by B2's
+    # rules
     step = bench.setup(1, s.dev)
     loss_k, grads_k, live = step()
     with plain_kernels():
@@ -2752,8 +2881,9 @@ def phase10(s: Smoke, tmp: Path) -> dict:
             fail(f"the plain step launched kernels: {read_counts()}")
     worst = hold_gradients("the bench step against its plain kernels", grads_k, grads_p)
     rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    s.say(f"  bench step ({live} live instances) against B1-B4's plain versions: loss {float(loss_k):.7f} vs "
-          f"{float(loss_p):.7f} (rel {rel:.2e}); largest gradient difference {worst:.2e} of its field's largest")
+    s.say(f"  bench step ({live} live instances) against the plain versions of B1-B4 and the cover: loss "
+          f"{float(loss_k):.7f} vs {float(loss_p):.7f} (rel {rel:.2e}); largest gradient difference {worst:.2e} of "
+          f"its field's largest")
     del step, grads_k, grads_p
 
     # 10b: binning piece by piece, train form
@@ -2761,7 +2891,9 @@ def phase10(s: Smoke, tmp: Path) -> dict:
     r = profile_binning.run(profile_binning.build_parser().parse_args(["--device", DEVICE, "--out_root", str(tmp)]))
     s.sync()
     paths["profile_binning"] = read_counts()
-    _launches_of(s, "profile_binning", paths["profile_binning"], {})
+    # the composition and the whole once each, then the cover piece and the whole timed both ways
+    _launches_of(s, "profile_binning", paths["profile_binning"],
+                 {"bin_cover": 2 + 2 * 2 * (3 + profile_binning.REPS)})
     if not r["bit_equal"]:
         fail("binning's pieces composed in order differ from bin_splats")
     lo, hi = PIECES_RATIO
@@ -2881,7 +3013,7 @@ def main() -> int:
                                else trainer_counts if name == "blend_count" else counts["train"])[name]
         row["launches_by_path"] = {path: c[name] for path, c in by_path.items() if c.get(name)}
     order = ("blend_forward", "blend_forward_fast", "blend_backward", "blur3", "blur", "blur5", "blend_count",
-             "unchunk_transpose", "issue_probe")
+             "unchunk_transpose", "issue_probe", "bin_cover")
     print(json.dumps({"kernels": [s.rows[k] for k in order]}))
     print(s.card)
     print(json.dumps({"ok": True, "device": {

@@ -16,16 +16,23 @@ the way the JAX package honours it: instances past it are dropped, and
 
 The key is held in int64; the depth's float32 bit pattern is read with
 `view(torch.int32)` (depths of binned splats are positive and finite).
+
+The tile cover, piece (a), is one CUDA kernel on CUDA tensors
+(`csrc/bin_cover.cu`, `lg_bin_cover`, built by `utils/cuda_build.py` and
+counted in `LAUNCHES`); on CPU tensors `plain_cover` runs it as the torch
+chain of `tile_rect` and `_exact_tile_mask`, whose outputs the kernel equals
+bit for bit on the card. The other pieces are torch ops on either device.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import NamedTuple
 
 import torch
 
 from lightgaussian_tpu_torch.ops.rasterize.projection import ALPHA_EPS, Splats
-from lightgaussian_tpu_torch.utils import stage_marks
+from lightgaussian_tpu_torch.utils import cuda_build, stage_marks
 
 TILE_SIZE = 32  # 32x32 px per tile, as in the JAX package
 
@@ -49,6 +56,21 @@ MAX_MASK_TILES = 32
 # Tile pixel-center boxes are inflated by this many pixels before the
 # intersection test, so it stays conservative under f32 rounding.
 _MASK_MARGIN_PX = 0.25
+
+COVER_SOURCE = cuda_build.CSRC / "bin_cover.cu"
+
+# Launches of the cover kernel since the last reset (the plain version does not count).
+LAUNCHES = {"bin_cover": 0}
+_COVER_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _library() -> ctypes.CDLL:
+    return cuda_build.load(COVER_SOURCE, {"lg_bin_cover": _COVER_ARGS})
 
 
 class TileGrid(NamedTuple):
@@ -249,13 +271,50 @@ class TileCover(NamedTuple):
 # profiler (`scripts/profile_binning.py`) times each of them.
 
 
-def _cover(splats: Splats, grid: TileGrid) -> TileCover:
-    """(a) `tile_rect` + `_exact_tile_mask`."""
+def plain_cover(splats: Splats, grid: TileGrid) -> TileCover:
+    """The tile cover as torch ops: `tile_rect` + `_exact_tile_mask`."""
     lo_x, lo_y, hi_x, _hi_y, rect_count = tile_rect(
         splats.mean2d, splats.radius, grid, conic=splats.conic, opacity=splats.opacity
     )
     mask, count, _use_mask = _exact_tile_mask(splats, lo_x, lo_y, hi_x, rect_count)
     return TileCover(lo_x, lo_y, hi_x, mask, count)
+
+
+def _check_cover_inputs(splats: Splats) -> None:
+    n = splats.mean2d.shape[0] if splats.mean2d.dim() == 2 else -1
+    for name, t, dtype, shape in (("mean2d", splats.mean2d, torch.float32, (n, 2)),
+                                  ("conic", splats.conic, torch.float32, (n, 3)),
+                                  ("opacity", splats.opacity, torch.float32, (n,)),
+                                  ("radius", splats.radius, torch.int32, (n,))):
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {dtype} {list(shape)}, got {t.dtype} {list(t.shape)}")
+        if t.device != splats.mean2d.device:
+            raise ValueError(f"{name} on {t.device}, mean2d on {splats.mean2d.device}")
+        if t.dim() == 2 and t.stride(1) != 1 and n > 0:
+            raise ValueError(f"{name} must have unit stride along its last dimension, got {t.stride()}")
+    if splats.mean2d.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the tile cover runs on CUDA or, as plain torch, on the CPU; got {splats.mean2d.device}")
+
+
+def _cover(splats: Splats, grid: TileGrid) -> TileCover:
+    """(a) Each Gaussian's tile rect, exact mask and count: the cover kernel
+    on CUDA tensors, `plain_cover` on CPU tensors. The kernel's rows of the
+    rect (lo_x, lo_y, hi_x) are read only where the count is positive."""
+    _check_cover_inputs(splats)
+    if splats.mean2d.device.type == "cpu":
+        return plain_cover(splats, grid)
+    n = splats.mean2d.shape[0]
+    out = torch.empty((5, n), dtype=torch.int64, device=splats.mean2d.device)
+    if n > 0:
+        fn = _library().lg_bin_cover
+        with torch.cuda.device(out.device):
+            err = fn(splats.mean2d.data_ptr(), splats.conic.data_ptr(), splats.opacity.data_ptr(),
+                     splats.radius.data_ptr(), *(row.data_ptr() for row in out), n, splats.mean2d.stride(0),
+                     splats.conic.stride(0), splats.opacity.stride(0), splats.radius.stride(0), grid.tiles_x,
+                     grid.tiles_y, cuda_build.stream_of(out))
+        cuda_build.check(err, "lg_bin_cover")
+        LAUNCHES["bin_cover"] += 1
+    return TileCover(*out)
 
 
 def _instance_total(count: torch.Tensor) -> tuple[torch.Tensor, int]:

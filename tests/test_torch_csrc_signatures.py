@@ -16,13 +16,13 @@ import pytest
 import torch
 
 from lightgaussian_tpu_torch.ops import losses
-from lightgaussian_tpu_torch.ops.rasterize import blend
+from lightgaussian_tpu_torch.ops.rasterize import binning, blend
 from lightgaussian_tpu_torch.utils import cuda_build, issue_probe
 
 torch.set_num_threads(1)
 
 LOADERS = (blend._forward_library, blend._backward_library, blend._unchunk_library, losses._library,
-           issue_probe._library)
+           issue_probe._library, binning._library)
 
 
 def _entry_points() -> dict:
