@@ -216,6 +216,16 @@ Phases, each of which exits non-zero on failure:
      last: in a process after a profiler session the host runs ops more
      slowly. First, `sh_dc_to_rgb` of the 256 levels'
      DC values on the card equals the CPU's bit for bit.
+  11. A frame past the JAX package's 2^24 instances (BIG_FRAME: 2,000,000
+     Gaussians at 3840x2160, about 20 M live instances, a sixth from the
+     >32-tile fallback) binned at the default cut (`build_binning`): every
+     live instance kept, none counted cut (`binning.INSTANCES`); on it the
+     render-only blend (B6) and the exact blend (B1) against their plain
+     versions (KERNEL_TOL), the blend backward (B2) per Gaussian against the
+     plain per-instance gradients summed by `gid_sorted` (B2's rules), and
+     the counting blend (B5) as in phase 2 at full size; then
+     `api.render(fast=True)` with no cut reports the same live count, none
+     cut, and B6's image within KERNEL_TOL.
 From phase 3 on, every binning launches the tile cover once: a path's
 expected launches hold one `bin_cover` a render (a B1, B6 or B5 launch),
 and the paths that bin otherwise (cached trajectory frames, the binning
@@ -442,6 +452,9 @@ COVER_BYTES = 28 + 40  # a Gaussian's mean, conic, opacity and radius in; five i
 COVER_TARGET_MS = 0.15
 # A render bins once for its one blend (B1, B6 or B5); B2 blends over its step's binning.
 RENDER_BLENDS = ("blend_forward", "blend_forward_fast", "blend_count")
+# Phase 11's frame of more than 2^24 live instances (the JAX package's ceiling).
+BIG_FRAME = dict(n=2_000_000, width=3840, height=2160, extent=2.0, scale_range=(0.008, 0.03), seed=23)
+JAX_CEILING = 1 << 24
 
 
 def fail(msg: str) -> None:
@@ -2960,6 +2973,62 @@ def phase10(s: Smoke, tmp: Path) -> dict:
     return paths
 
 
+def phase11(s: Smoke) -> None:
+    """A frame of more than 2^24 live instances, binned and blended whole."""
+    from lightgaussian_tpu_torch.models.camera import Camera
+    from lightgaussian_tpu_torch.ops.rasterize import binning, blend, build_binning, render, tiled
+    from lightgaussian_tpu_torch.utils import synthetic
+
+    torch = s.torch
+    cfg = BIG_FRAME
+    w, h, n = cfg["width"], cfg["height"], cfg["n"]
+    scene = synthetic.random_scene(n=n, seed=cfg["seed"], extent=cfg["extent"], scale_range=cfg["scale_range"],
+                                   device=s.dev)
+    cam = Camera.look_at(eye=orbit_eye(0.0), target=[0.0, 0.0, 0.0], fovx=0.9, width=w, height=h, device=s.dev)
+    bg = torch.zeros(3, device=s.dev)
+    grid = binning.make_grid(w, h)
+    reset_counts()
+    b = build_binning(scene, cam)
+    s.sync()
+    counted = dict(binning.INSTANCES)
+    s.say(f"  a {w}x{h} frame of {n} Gaussians: {b.total} live instances ({b.total / JAX_CEILING:.3f} x 2^24), "
+          f"{b.inst.shape[0]} binned; counters {counted}")
+    if b.total <= JAX_CEILING:
+        fail(f"phase 11's frame has {b.total} live instances, not more than 2^24")
+    if b.inst.shape[0] != b.total or counted["cut"] or counted["live"] != b.total:
+        fail("the default cut dropped live instances of a frame past 2^24")
+    if int(b.tile_starts[-1]) != b.total:
+        fail(f"the tile ranges end at {int(b.tile_starts[-1])}, not at the live count {b.total}")
+
+    out = {}
+    for name, fn, exact in (("blend_forward_fast", blend.blend_forward_fast, False),
+                            ("blend_forward", blend.blend_forward, True)):
+        rgb, t = fn(b.tile_starts, b.inst, grid)
+        s.sync()
+        w_rgb, w_t, _ = blend.plain_blend(b.tile_starts, b.inst, grid, exact=exact)
+        err = max(float((rgb - w_rgb).abs().max()), float((t - w_t).abs().max()))
+        s.say(f"  {name:20s} vs plain on the 2^24+ frame: max|d| = {err:.3e} (atol {KERNEL_TOL:.0e})")
+        if not (torch.isfinite(rgb).all() and torch.isfinite(t).all()) or err > KERNEL_TOL:
+            fail(f"{name} disagrees with its plain version on a frame past 2^24")
+        out[name] = (rgb, t)
+    image, final_t = tiled._compose(*out["blend_forward"], bg, grid, w, h)
+    tile_g, tile_r = backward_seed(s, image, final_t, grid, 11)
+    hold_backward(s, b, grid, n, tile_g, tile_r, "the 2^24+ frame")
+    hold_counting(s, b, grid, n, "the 2^24+ frame", full_size=True)
+
+    reset_counts()
+    served = render(scene, cam, bg, fast=True)
+    s.sync()
+    want, _ = tiled._compose(*out["blend_forward_fast"], bg, grid, w, h)
+    err = float((served.render - want).abs().max())
+    s.say(f"  api.render(fast=True) with no cut: {served.num_instances} live, counters {dict(binning.INSTANCES)}; "
+          f"image max|d| = {err:.3e} from B6's on the binning above (atol {KERNEL_TOL:.0e})")
+    if served.num_instances != b.total or binning.INSTANCES["cut"] or err > KERNEL_TOL:
+        fail("api.render's default cut dropped instances of a frame past 2^24")
+    s.say(f"phase 11 ok: a frame of {b.total} live instances rendered, exact-rendered, backpropagated and "
+          f"counted whole")
+
+
 def main() -> int:
     import torch
 
@@ -3002,6 +3071,7 @@ def main() -> int:
             cli_paths.update(timed(number, phase, tmp))
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+    timed(11, phase11)
     # launches on each kernel's path: the render CLI (B6), the training steps (B1-B4), the eval render
     # (B7), the trainer CLI (B5); B8 and the probe, on no product path, carry their own entry points'.
     # Beside them, each kernel's launches on every path the run drove.

@@ -19,7 +19,6 @@ import torch
 
 from lightgaussian_tpu_torch.cli import common
 from lightgaussian_tpu_torch.data.scene import Scene
-from lightgaussian_tpu_torch.ops.rasterize import default_max_instances
 from lightgaussian_tpu_torch.render import sets as render_sets
 from lightgaussian_tpu_torch.utils.device import resolve_device
 from lightgaussian_tpu_torch.utils.general import safe_state
@@ -55,17 +54,16 @@ def main(argv=None) -> None:
         device=device,
     )
     bg = torch.full((3,), 1.0 if model.white_background else 0.0, device=device)
-    max_instances = default_max_instances(scene.gaussians)
 
     if not args.skip_train and scene.getTrainCameras():
         render_sets.render_set(
             model.model_path, "train", scene.loaded_iter, scene.getTrainCameras(),
-            scene.gaussians, bg, max_instances,
+            scene.gaussians, bg,
         )
     if not args.skip_test and scene.getTestCameras():
         render_sets.render_set(
             model.model_path, "test", scene.loaded_iter, scene.getTestCameras(),
-            scene.gaussians, bg, max_instances,
+            scene.gaussians, bg,
         )
     common.leave_distributed()
 

@@ -83,13 +83,11 @@ def main(argv=None) -> None:
     )
     bg = torch.full((3,), 1.0 if model.white_background else 0.0, device=device)
     cams = scene.getTrainCameras() or scene.getTestCameras()
-    max_instances = default_max_instances(scene.gaussians)
+    max_instances = default_max_instances(scene.gaussians)  # the trajectories' first cut; they grow it
 
     for name, cameras in (("train", scene.getTrainCameras()), ("test", scene.getTestCameras())):
         if not getattr(args, f"skip_{name}") and cameras:
-            render_sets.render_set(
-                model.model_path, name, scene.loaded_iter, cameras, scene.gaussians, bg, max_instances,
-            )
+            render_sets.render_set(model.model_path, name, scene.loaded_iter, cameras, scene.gaussians, bg)
     for flag, kind in TRAJECTORIES:
         if getattr(args, flag):
             render_sets.render_trajectory(
@@ -103,7 +101,7 @@ def main(argv=None) -> None:
         base = Path(model.model_path) / "perturbed" / f"ours_{scene.loaded_iter}"
         for idx in range(min(args.n_frames, 100)):
             cam = pose_gen.gaussian_pose(cams[idx % len(cams)], rng, mean=args.mean, std_translation=args.std)
-            img = render(scene.gaussians, cam, bg, max_instances=max_instances).render
+            img = render(scene.gaussians, cam, bg).render
             render_sets.save_png(img, base / f"{idx:05d}.png")
     common.leave_distributed()
 

@@ -13,6 +13,11 @@ Global Significance Score; it has no backward.
 `build_binning(scene, camera)` bins a keyframe once, and `render(...,
 cached_binning=b)` renders a nearby camera over that order with fresh
 features (trajectory frames; forward only).
+
+Given no `max_instances`, a render or binning keeps every live instance (the
+cut is `binning.MAX_CAPACITY`, and a frame of more raises): the instance
+buffer is sized from the live count, so a high cut holds nothing. Where the
+JAX package's default cut would bind, the port renders the frame whole.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ from lightgaussian_tpu_torch.models.camera import Camera
 from lightgaussian_tpu_torch.models.gaussians import GaussianScene
 from lightgaussian_tpu_torch.ops.rasterize import reference as ref_mod
 from lightgaussian_tpu_torch.ops.rasterize import tiled as tiled_mod
-from lightgaussian_tpu_torch.ops.rasterize.binning import estimate_max_instances
+from lightgaussian_tpu_torch.ops.rasterize.binning import MAX_CAPACITY, estimate_max_instances
 from lightgaussian_tpu_torch.ops.rasterize.projection import preprocess
 from lightgaussian_tpu_torch.utils import stage_marks
 
@@ -42,7 +47,9 @@ class RenderOutput:
 
 
 def default_max_instances(scene: GaussianScene) -> int:
-    """The instance budget of a frame of `scene`, from its capacity."""
+    """The trainers' first instance cut for `scene`, from its capacity (the
+    JAX package's heuristic; the training loop grows it). Renders given no
+    cut keep every live instance instead."""
     return estimate_max_instances(scene.capacity)
 
 
@@ -55,7 +62,7 @@ def build_binning(
     """The scene's binning for this camera, for reuse through
     `render(..., cached_binning=...)` on the cameras near it."""
     if max_instances is None:
-        max_instances = default_max_instances(scene)
+        max_instances = MAX_CAPACITY
     with torch.no_grad():
         splats = preprocess(scene, camera, scale_modifier=scale_modifier)
     stage_marks.mark("preprocess")
@@ -111,7 +118,7 @@ def render(
         )
     elif method == "tiled":
         if max_instances is None:
-            max_instances = default_max_instances(scene)
+            max_instances = MAX_CAPACITY
         blend = tiled_mod.blend_tiled_fast if fast else tiled_mod.blend_tiled
         image, final_t, total = blend(splats, bg, camera.width, camera.height, max_instances)
     else:
@@ -144,7 +151,7 @@ def count_render(
         total = 0
     elif method == "tiled":
         if max_instances is None:
-            max_instances = default_max_instances(scene)
+            max_instances = MAX_CAPACITY
         image, final_t, total, cnt, imp = tiled_mod.blend_tiled_counting(
             splats, bg, camera.width, camera.height, max_instances
         )

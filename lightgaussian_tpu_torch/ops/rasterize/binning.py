@@ -12,7 +12,10 @@ Unlike the JAX package, the instance buffer is sized per frame from the live
 count (one host read of `total`), and holds only live instances, instance-
 major `[M, FEAT_WIDTH]`. A capacity from `max_instances` is still honoured
 the way the JAX package honours it: instances past it are dropped, and
-`total` reports the count before the cut.
+`total` reports the count before the cut. The port's own ceiling is its
+index widths' (`MAX_CAPACITY`, the int32 `tile_starts`), not the JAX
+package's 2^24: a frame of more live instances than that raises, and a
+render given no cut (`MAX_CAPACITY`) renders every live instance.
 
 The key is held in int64; the depth's float32 bit pattern is read with
 `view(torch.int32)` (depths of binned splats are positive and finite).
@@ -47,8 +50,11 @@ FEAT_WIDTH = 9
 # rounded to it so both packages cut an overflowing frame at the same slot.
 INST_CHUNK = 128
 
-# The JAX package keeps instance offsets in f32 metadata, exact below 2^24.
-MAX_CAPACITY = 1 << 24
+# The port's ceiling on a frame's instances (the JAX package's is 2^24, its
+# f32 metadata): the int32 `tile_starts` index them, so at most 2^31 - 1,
+# here in whole chunks. Row offsets (`size_t` in the blend kernels) and
+# `gid_sorted` (int64) are wider.
+MAX_CAPACITY = ((1 << 31) - 1) // INST_CHUNK * INST_CHUNK
 
 # Rects with at most this many tiles get exact per-tile ellipse tests.
 MAX_MASK_TILES = 32
@@ -61,12 +67,16 @@ COVER_SOURCE = cuda_build.CSRC / "bin_cover.cu"
 
 # Launches of the cover kernel since the last reset (the plain version does not count).
 LAUNCHES = {"bin_cover": 0}
+# Instances of the binnings since the last reset: live (before any cut), cut
+# (past the capacity, dropped) and those of the >32-tile rect fallback.
+INSTANCES = {"live": 0, "cut": 0, "fallback": 0}
 _COVER_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, INSTANCES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -237,7 +247,7 @@ def instance_capacity(max_instances: int) -> int:
     """Instance capacity: the live-instance budget rounded to whole chunks."""
     cap = ((max_instances + INST_CHUNK - 1) // INST_CHUNK) * INST_CHUNK
     if cap > MAX_CAPACITY:
-        raise ValueError(f"instance capacity {cap} exceeds MAX_CAPACITY {MAX_CAPACITY}")
+        raise ValueError(f"instance capacity {cap} exceeds MAX_CAPACITY {MAX_CAPACITY} (int32 tile_starts)")
     return cap
 
 
@@ -317,11 +327,16 @@ def _cover(splats: Splats, grid: TileGrid) -> TileCover:
     return TileCover(*out)
 
 
-def _instance_total(count: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """(b) The counts' inclusive prefix sum and the live total, read on the
-    host: the binning's one synchronise."""
+def _instance_total(count: torch.Tensor) -> tuple[torch.Tensor, int, int]:
+    """(b) The counts' inclusive prefix sum, the live total and the
+    instances of the >32-tile fallback, read on the host together: the
+    binning's one synchronise."""
     cum = torch.cumsum(count, dim=0)
-    return cum, int(cum[-1]) if count.numel() else 0
+    if not count.numel():
+        return cum, 0, 0
+    fallback = torch.threshold(count, MAX_MASK_TILES, 0).sum()
+    total, fallback = torch.stack((cum[-1], fallback)).tolist()
+    return cum, total, fallback
 
 
 def _fill_slots(cover: TileCover, cum: torch.Tensor, total: int, m: int, grid: TileGrid):
@@ -385,8 +400,14 @@ def bin_splats(splats: Splats, grid: TileGrid, max_instances: int) -> Binning:
     n = splats.mean2d.shape[0]
     cap = instance_capacity(max_instances)
     cover = _cover(splats, grid)
-    cum, total = _instance_total(cover.count)
+    cum, total, fallback = _instance_total(cover.count)
+    if total > MAX_CAPACITY:
+        raise ValueError(f"{total} live instances exceed MAX_CAPACITY {MAX_CAPACITY}, what the int32 "
+                         "tile_starts index: the frame cannot be binned whole")
     m = min(total, cap)
+    INSTANCES["live"] += total
+    INSTANCES["cut"] += total - m
+    INSTANCES["fallback"] += fallback
     if m == 0:
         dev = splats.mean2d.device
         return Binning(
@@ -435,7 +456,9 @@ def snug_capacity(live: int) -> int:
 
 
 def estimate_max_instances(num_gaussians: int) -> int:
-    """Instance-capacity heuristic of the JAX package (8 tiles a Gaussian)."""
+    """Instance-capacity heuristic of the JAX package (8 tiles a Gaussian),
+    capped at the port's ceiling: the JAX package's own below
+    2^24 / 8 Gaussians, where its cap does not bind."""
     m = int(num_gaussians * 8.0)
     m = min(max(m, 1 << 16), MAX_CAPACITY)
     return ((m + INST_CHUNK - 1) // INST_CHUNK) * INST_CHUNK

@@ -16,7 +16,7 @@ import torch
 import torch.distributed as dist
 
 from lightgaussian_tpu_torch.models.camera import Camera
-from lightgaussian_tpu_torch.ops.rasterize import default_max_instances
+from lightgaussian_tpu_torch.ops.rasterize.binning import MAX_CAPACITY
 from lightgaussian_tpu_torch.parallel import comm
 from lightgaussian_tpu_torch.parallel.mesh import DATA_AXIS, SPACE_AXIS, make_mesh
 from lightgaussian_tpu_torch.parallel.train import render_strip
@@ -75,7 +75,8 @@ def parallel_render(
     With `mesh=None` every process is on the ``space`` axis (strip
     parallelism, one frame at a time). The cameras must share one
     resolution. The list is padded to a multiple of the data axis by
-    repeating its last camera, and the padded frames are dropped."""
+    repeating its last camera, and the padded frames are dropped. Without
+    `max_instances` every live instance of a strip is rendered."""
     if mesh is None:
         mesh = make_mesh(data=1, space=dist.get_world_size() if dist.is_initialized() else 1)
     cameras = list(cameras)
@@ -88,8 +89,7 @@ def parallel_render(
                 f"parallel_render requires a single resolution per call (got {w}x{h} and {c.width}x{c.height})"
             )
     if max_instances is None:
-        # the full frame's budget: strips share the splats on their seams
-        max_instances = default_max_instances(scene)
+        max_instances = MAX_CAPACITY
     n_data = comm.axis_size(mesh, DATA_AXIS)
     fn = make_parallel_render(mesh, w, h, max_instances, fast)
     out: list[torch.Tensor] = []

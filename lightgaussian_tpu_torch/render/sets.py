@@ -19,7 +19,7 @@ import torch.distributed as dist
 from lightgaussian_tpu_torch.models.camera import Camera
 from lightgaussian_tpu_torch.models.gaussians import GaussianScene
 from lightgaussian_tpu_torch.ops.rasterize import build_binning, render
-from lightgaussian_tpu_torch.ops.rasterize.binning import snug_capacity
+from lightgaussian_tpu_torch.ops.rasterize.binning import MAX_CAPACITY, snug_capacity
 from lightgaussian_tpu_torch.ops.rasterize.projection import NEAR_PLANE
 from lightgaussian_tpu_torch.parallel import parallel_render
 from lightgaussian_tpu_torch.parallel.mesh import is_multi_process
@@ -42,11 +42,12 @@ def render_set(
     cameras: list[Camera],
     scene: GaussianScene,
     bg: torch.Tensor,
-    max_instances: int,
+    max_instances: int | None = None,
 ) -> Path:
     """Render every camera with the render-only kernel (its difference from
     the exact one is below PNG quantization) and write renders/ and gt/ PNGs
-    under `<model_path>/<name>/ours_<iteration>/`."""
+    under `<model_path>/<name>/ours_<iteration>/`. Without `max_instances`
+    every live instance is rendered."""
     base = Path(model_path) / name / f"ours_{iteration}"
     multi = is_multi_process()
     images = None
@@ -178,8 +179,8 @@ def render_trajectory(
 
     The instance buffer is sized per frame, so of the JAX package's capacity
     policy one rule is left: when a frame's live count reaches the cut, the
-    cut rises to `snug_capacity` of the count (a line says so) and the frame
-    renders again."""
+    cut rises to `snug_capacity` of the count, at most the port's ceiling
+    `MAX_CAPACITY` (a line says so), and the frame renders again."""
     base = Path(model_path) / TRAJECTORY_DIRS[kind] / f"ours_{iteration}"
     frames = trajectory_frames(kind, cameras, n_frames, radius)
 
@@ -199,9 +200,11 @@ def render_trajectory(
         nonlocal cap
         if total < cap:
             return False
+        grown_cap = min(snug_capacity(total), MAX_CAPACITY)
         print(f"[{kind} frame {idx}] {total} live instances reach the cut {cap}; growing it to "
-              f"{snug_capacity(total)} and {again} the frame again")
-        cap = snug_capacity(total)
+              f"{grown_cap} and {again} the frame again (the ceiling is MAX_CAPACITY {MAX_CAPACITY}, "
+              "the int32 tile ranges')")
+        cap = grown_cap
         return True
 
     def fresh(idx, cam):

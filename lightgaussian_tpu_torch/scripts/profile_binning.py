@@ -52,7 +52,7 @@ def compose(splats, grid, cap: int):
     call running its piece again on the inputs the pieces before it made,
     and the composed outputs (gid_sorted, tile_starts, inst, total)."""
     cover = B._cover(splats, grid)
-    cum, total = B._instance_total(cover.count)
+    cum, total, _ = B._instance_total(cover.count)
     m = min(total, B.instance_capacity(cap))
     if m == 0:
         raise ValueError("no live instance to bin")

@@ -9,8 +9,10 @@ export. The work stays on the device; this module decides when to run what.
 What differs from the JAX loop, on purpose: the instance buffer is sized per
 frame from the live count (`binning.bin_splats`), so `max_instances` is only
 a cut that costs nothing to hold high. The loop therefore grows it as soon
-as a step reports a count near it, and never shrinks it; the JAX loop's
-shrink policy saves a cost that does not exist here.
+as a step reports a count near it, past the JAX package's 2^24 up to the
+port's `binning.MAX_CAPACITY`, and never shrinks it; the JAX loop's shrink
+policy saves a cost that does not exist here. The viewer's frames keep every
+live instance.
 """
 from __future__ import annotations
 
@@ -41,6 +43,15 @@ SYNC_LAG = 8
 # The instance cut grows (to `snug_capacity` of the live count) when a
 # frame's count comes within this share of it.
 GROW_TRIGGER = 0.85
+
+
+def grown_cut(cut: int, live: int) -> int:
+    """The instance cut after a step of `live` instances: once they pass
+    GROW_TRIGGER of it, `snug_capacity` of them, at most MAX_CAPACITY (a
+    frame past that raises in binning; none is cut there)."""
+    if live > GROW_TRIGGER * cut:
+        return min(snug_capacity(live), MAX_CAPACITY)
+    return cut
 
 
 @dataclasses.dataclass
@@ -239,10 +250,10 @@ def train(
     white_background = bool((bg == 1.0).all())
 
     def gui_render(cam, scale_mod):
-        """The viewer's frame at its pose, resolution and scale."""
+        """The viewer's frame at its pose, resolution and scale, every live
+        instance rendered."""
         with torch.no_grad():
-            return render(state.scene, cam, bg, scale_modifier=scale_mod, max_instances=max_instances,
-                          fast=True).render
+            return render(state.scene, cam, bg, scale_modifier=scale_mod, fast=True).render
 
     def draw() -> Camera:
         nonlocal camera_stack
@@ -278,21 +289,15 @@ def train(
                 f"[{iteration}] instance buffer overflow: {inst_used} >= "
                 f"capacity {max_instances}: deepest splats truncated this step; growing"
             )
-        if inst_used > GROW_TRIGGER * max_instances:
-            new_cap = snug_capacity(inst_used)
-            if new_cap > MAX_CAPACITY:
-                print(
-                    f"[{iteration}] instance buffer request {new_cap} clamped "
-                    f"to MAX_CAPACITY {MAX_CAPACITY} (deepest splats will be truncated)"
-                )
-                new_cap = MAX_CAPACITY
-            if new_cap != max_instances:
-                print(
-                    f"[{iteration}] instance buffer {inst_used} vs capacity "
-                    f"{max_instances}; growing to {new_cap}"
-                )
-                max_instances = new_cap
-                step_fn, eval_fn = make_fns()
+        new_cap = grown_cut(max_instances, inst_used)
+        if new_cap != max_instances:
+            print(
+                f"[{iteration}] instance buffer {inst_used} vs capacity "
+                f"{max_instances}; growing to {new_cap} (the ceiling is MAX_CAPACITY "
+                f"{MAX_CAPACITY}, the int32 tile ranges')"
+            )
+            max_instances = new_cap
+            step_fn, eval_fn = make_fns()
 
         if iteration % 100 == 0:
             consume_metrics()

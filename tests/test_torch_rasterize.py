@@ -341,5 +341,9 @@ def test_capacity_helpers_match_jax():
         assert tb.instance_capacity(n) == jb.instance_capacity(n, grid_j)
     for live in (10, 700_000, 768_651):
         assert tb.snug_capacity(live) == jb.snug_capacity(live)
+    # the port's ceiling is its int32 tile ranges', not the JAX package's 2^24
+    assert tb.MAX_CAPACITY == (1 << 31) - tb.INST_CHUNK and jb.MAX_CAPACITY == 1 << 24
+    assert tb.instance_capacity(jb.MAX_CAPACITY + 1) == jb.MAX_CAPACITY + tb.INST_CHUNK
+    assert tb.estimate_max_instances(3_000_000) == 24_000_000 > jb.estimate_max_instances(3_000_000, grid_j)
     with pytest.raises(ValueError):
         tb.instance_capacity(tb.MAX_CAPACITY + 1)
