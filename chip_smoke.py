@@ -5,9 +5,10 @@ Usage: python3 chip_smoke.py        (from the repository root; needs one CUDA ca
 
 Phases, each of which exits non-zero on failure:
   1. The card (nvidia-smi name and power limit) and the kernels' build: the
-     six CUDA sources compiled at once, one nvcc each, with ptxas's
+     seven CUDA sources compiled at once, one nvcc each, with ptxas's
      registers, spills and shared memory for every kernel (the forward,
-     counting and backward blends, their tile-ordering kernel included).
+     counting and backward blends, their tile-ordering kernel included, and
+     the preprocess forward and backward at each SH degree).
   2. Each kernel against its plain PyTorch version on the card:
      - the exact and render-only blends (B1, B6) on the 2048-Gaussian
        192x128 parity scene and on a scene whose tiles saturate (so the early
@@ -60,7 +61,21 @@ Phases, each of which exits non-zero on failure:
        non-finite, radius 0, ellipses grazing a neighbouring tile's box) at
        1237x822, and on the whole set as column views of one array: count
        and mask equal on every Gaussian, lo_x, lo_y and hi_x where the
-       count is positive.
+       count is positive;
+     - the preprocess kernels (`lg_preprocess_forward`,
+       `lg_preprocess_backward`) against the torch chain they replace
+       (`projection.plain_preprocess` and its autograd) on the stress set
+       (`synthetic.preprocess_stress`: dead Gaussians, depths on and around
+       the near plane and the EWA's depth clamp, means exactly on the 1.3
+       tan(fov) clamp, colours exactly on the clamp at 0, sizes from a point
+       to larger than the view, means off-screen) at 1237x822, at each SH
+       degree of 4 with the offset, with precomputed colours and a scale
+       modifier, with precomputed covariances (half with det <= 0), and at
+       SH 2 over a view of wider sh_rest rows with the opacity frozen: the
+       forward's six outputs bit for bit (differing elements counted), the
+       backward within PREPROCESS_GRAD_TOL of autograd's largest gradient
+       and its elements counted against the plain twin
+       (`projection.preprocess_backward_plain`), one launch of each.
   3. The serving path at full width: a 300k-Gaussian SH-3 scene at
      1920x1080 saved as a PLY, a Blender-format source with 8 test cameras,
      and `lightgaussian_tpu_torch.cli.render_sets` writing their PNGs through
@@ -78,13 +93,16 @@ Phases, each of which exits non-zero on failure:
      assume. Last, the tile cover on a 3 M-Gaussian scene drawn like the
      benchmark's 3dgs-m360 at 1237x822 from two ring angles, equal to the
      chain as in phase 2, then timed (CUDA events over 20 launches) beside
-     its byte bound and the chain's time.
+     its byte bound and the chain's time. And the preprocess kernels as in
+     phase 2 on a 1.02 M-Gaussian SH-2 scene (lg-m360's size) and that 3 M
+     SH-3 one from two ring angles, then timed at 3 M beside their byte
+     bounds, the chain's forward and forward + backward, and the twin.
   4. Training at full width: the same scene rendered exactly from the 8
      views is the ground truth; a copy with seeded noise on colour, opacity
      and position trains against it for 24 steps of `make_train_step` (the
      cached-target SSIM; instance capacity 983,040), cycling the views. The
-     launch counts are read around the steps (B1, B2, B3 and B4 once a
-     step) and around `make_eval_render` (B1 and B7 once a view), whose mean
+     launch counts are read around the steps (B1, B2, B3, B4, the cover and
+     the preprocess forward and backward once a step) and around `make_eval_render` (B1 and B7 once a view), whose mean
      L1 over the 8 views must fall. Each step is timed whole and split at
      its stage marks (CUDA events recorded by the step itself, see
      `lightgaussian_tpu_torch/utils/stage_marks.py`), and each training
@@ -202,12 +220,13 @@ Phases, each of which exits non-zero on failure:
      at `--batch 2 --repeats 3 --iters 3` (B1-B3 26, B4 27), its JSON line
      printed and its value held to the pixels over the median step; the
      bench step's gradients against the same loss through the plain
-     versions of B1-B4 on the card, by B2's rules (B2_TOL,
+     versions of B1-B4, the cover and the preprocess on the card, by B2's
+     rules (B2_TOL,
      B2_MEDIAN_REL_TOL); `profile_binning` (the pieces of `bin_splats`
      composed in order give its outputs bit for bit, and their times sum to
      0.7-1.5x the whole); `profile_binning_infer` at both points (the same
      bit-equality; at `--large` its fresh frame within 1.5x of phase 3's
-     serving frame); `profile_bwd` (its B2 seed bit-equal to what the
+     serving frame, the two timed in turns); `profile_bwd` (its B2 seed bit-equal to what the
      autograd blend hands B2 for the same cotangent); and last
      `profile_step` (its pieces, and a `torch.profiler` trace of 5 bench
      steps read through by `harness.trace_summary`: each hand-written
@@ -229,9 +248,13 @@ Phases, each of which exits non-zero on failure:
 From phase 3 on, every binning launches the tile cover once: a path's
 expected launches hold one `bin_cover` a render (a B1, B6 or B5 launch),
 and the paths that bin otherwise (cached trajectory frames, the binning
-profiler, the FPS study, the roofline tool) give their own count. Each
+profiler, the FPS study, the roofline tool) give their own count. So with
+the preprocess kernels: one `preprocess_forward` a render and one
+`preprocess_backward` a blend backward (B2), and the paths that preprocess
+otherwise (a keyframe's binning, the profilers' preprocess alone) give
+theirs. Each
 phase ends with its own seconds. Then a `{"kernels": [...]}` line of the
-ten kernels, the card line, and the final `{"ok": true, "device": {...}}`
+twelve kernels, the card line, and the final `{"ok": true, "device": {...}}`
 line.
 
 Bounds. `bound_ms` is the least time the card could take for a kernel's
@@ -437,10 +460,11 @@ STREAM_SLACK = 1.05  # a measured stream above this share of PEAK_BYTES would ma
 # (at 2 pi/4000 it still rebinned all 48).
 BENCH_FINE_STEP_DIV = 20000
 # Phase 10, the measurement layer: the bench's batched run, the binning split's sum against the whole, and the
-# profiler's fresh frame against phase 3's serving frame.
+# profiler's fresh frame against phase 3's serving frame, timed in turns.
 BENCH_BATCH_ARGS = ("--batch", "2", "--repeats", "3", "--iters", "3")
 PIECES_RATIO = (0.7, 1.5)  # sum of the binning pieces over the whole; outside it the split misses or repeats work
 FRESH_VS_SERVING = 1.5
+FRESH_GROUPS, FRESH_REPS = 5, 10  # the two frames' groups, taken in turns, and each group's calls
 # The tile cover (csrc/bin_cover.cu) against the torch chain: each kind of `synthetic.COVER_STRESS_KINDS` at the
 # benchmark's 1237x822, and a scene drawn like perfbench/configs/3dgs-m360.json's (3 M Gaussians, means in a cube
 # of half-width 2, log-scales uniform in [log 0.004, log 0.02], SH 3) seen from its ring (eye (5 sin t, 0.6,
@@ -450,6 +474,13 @@ COVER_STRESS_N = 65_536
 COVER_SCENE_N = 3_000_000
 COVER_BYTES = 28 + 40  # a Gaussian's mean, conic, opacity and radius in; five int64 out
 COVER_TARGET_MS = 0.15
+# The preprocess kernels (csrc/preprocess.cu) against the chain: the stress set at 1237x822, and scenes drawn like
+# 3dgs-m360's (3 M, SH 3) and lg-m360's (1.02 M, SH 2). The backward against autograd of the chain: the JAX
+# suite's gradient tolerance, after dividing by autograd's largest magnitude (the chain rule's terms are added in
+# another order).
+PREPROCESS_STRESS_N = 65_536
+PREPROCESS_SMALL_N = 1_020_000
+PREPROCESS_GRAD_TOL = 5e-5
 # A render bins once for its one blend (B1, B6 or B5); B2 blends over its step's binning.
 RENDER_BLENDS = ("blend_forward", "blend_forward_fast", "blend_count")
 # Phase 11's frame of more than 2^24 live instances (the JAX package's ceiling).
@@ -560,18 +591,19 @@ class Smoke:
 
 def build_kernels(s: Smoke) -> None:
     from lightgaussian_tpu_torch.ops import losses
-    from lightgaussian_tpu_torch.ops.rasterize import binning, blend
+    from lightgaussian_tpu_torch.ops.rasterize import binning, blend, projection
     from lightgaussian_tpu_torch.utils import cuda_build, issue_probe
 
     t0 = time.perf_counter()
     libs = cuda_build.build(blend.FORWARD_SOURCE, blend.BACKWARD_SOURCE, losses.SOURCE,
-                            blend.UNCHUNK_SOURCE, issue_probe.SOURCE, binning.COVER_SOURCE)
+                            blend.UNCHUNK_SOURCE, issue_probe.SOURCE, binning.COVER_SOURCE, projection.SOURCE)
     blend._forward_library()
     blend._backward_library()
     losses._library()
     blend._unchunk_library()
     issue_probe._library()
     binning._library()
+    projection._library()
     s.say(f"phase 1 ok: built {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         print(f"-- {lib.with_suffix('.log').name}")
@@ -580,28 +612,33 @@ def build_kernels(s: Smoke) -> None:
 
 def reset_counts() -> None:
     from lightgaussian_tpu_torch.ops import losses
-    from lightgaussian_tpu_torch.ops.rasterize import binning, blend
+    from lightgaussian_tpu_torch.ops.rasterize import binning, blend, projection
     from lightgaussian_tpu_torch.utils import issue_probe
 
     blend.reset_launch_counts()
     losses.reset_launch_counts()
     issue_probe.reset_launch_counts()
     binning.reset_launch_counts()
+    projection.reset_launch_counts()
 
 
 def read_counts() -> dict:
     from lightgaussian_tpu_torch.ops import losses
-    from lightgaussian_tpu_torch.ops.rasterize import binning, blend
+    from lightgaussian_tpu_torch.ops.rasterize import binning, blend, projection
     from lightgaussian_tpu_torch.utils import issue_probe
 
-    return {**blend.LAUNCHES, **losses.LAUNCHES, **issue_probe.LAUNCHES, **binning.LAUNCHES}
+    return {**blend.LAUNCHES, **losses.LAUNCHES, **issue_probe.LAUNCHES, **binning.LAUNCHES, **projection.LAUNCHES}
 
 
 def expected(counts: dict, want: dict) -> dict:
     """`want` over the keys of `counts`, 0 where it names none, with the
-    cover kernel's launches: one a binning, by default one binning a render
-    (RENDER_BLENDS); a path that bins otherwise names them."""
-    want = {"bin_cover": sum(want.get(k, 0) for k in RENDER_BLENDS), **want}
+    cover kernel's and the preprocess kernels' launches: by default one
+    binning and one preprocess forward a render (RENDER_BLENDS) and one
+    preprocess backward a blend backward (B2); a path that bins or
+    preprocesses otherwise names them."""
+    renders = sum(want.get(k, 0) for k in RENDER_BLENDS)
+    want = {"bin_cover": renders, "preprocess_forward": renders,
+            "preprocess_backward": want.get("blend_backward", 0), **want}
     return {k: want.get(k, 0) for k in counts}
 
 
@@ -920,6 +957,7 @@ def phase2(s: Smoke) -> dict:
     if counts["unchunk_transpose"] != len(UNCHUNK_SHAPES) or counts["issue_probe"] < 7:
         fail(f"B8 or the probe did not count its launches: {counts}")
     hold_cover_stress(s)
+    hold_preprocess_stress(s)
 
     gen = torch.Generator(device=s.dev).manual_seed(7)
     n_un = math.prod(BLUR_UNALIGNED_SHAPE)
@@ -1111,6 +1149,182 @@ def time_cover(s: Smoke) -> None:
           f"{PLAIN_REPS}); no PyTorch call computes a tile cover, library_ms null")
 
 
+def _bits_differ(a, b) -> int:
+    """Elements of two same-shaped tensors whose bits differ (NaNs of one
+    pattern equal)."""
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
+def hold_preprocess(s: Smoke, scene, cam, what: str, offset=None, colors=None, cov3d=None, scale_modifier=1.0,
+                    frozen=(), seed=0) -> dict:
+    """The preprocess kernels against the chain on the card: the forward's
+    six outputs bit for bit (differing elements counted per output), the
+    backward's gradients within PREPROCESS_GRAD_TOL of the largest magnitude
+    of autograd's through the chain, and against the plain twin
+    (`preprocess_backward_plain`, on the card too). The launch counters
+    read one forward and one backward. Returns the readings: the forward's
+    differing counts (`differ`) and largest |difference| over its float
+    outputs (`forward_abs`), and the backward's largest |difference| from
+    autograd over the gradients (`backward_abs`) and largest after dividing
+    by each gradient's largest magnitude (`backward_normalised`)."""
+    from lightgaussian_tpu_torch.ops.rasterize import projection
+
+    torch = s.torch
+    fields = ("mean2d", "conic", "color", "opacity", "depth", "radius")
+    params = {k: v.detach().clone().requires_grad_(k not in frozen) for k, v in scene.params().items()}
+    extra = {name: t.detach().clone().requires_grad_(True) for name, t in
+             (("mean2d_offset", offset), ("colors_precomp", colors), ("cov3d_precomp", cov3d)) if t is not None}
+    args = (extra.get("mean2d_offset"), extra.get("colors_precomp"), extra.get("cov3d_precomp"))
+    live = scene.with_params(params)
+    before = dict(projection.LAUNCHES)
+    got = projection.preprocess(live, cam, scale_modifier, *args)
+    s.sync()
+    want = projection.plain_preprocess(live, cam, scale_modifier, *args)
+    differ = {f: _bits_differ(getattr(got, f), getattr(want, f)) for f in fields}
+    # equal elements (infinite depths too) differ by 0; a NaN on one side only reads NaN
+    forward_abs = max(float(torch.where(a == b, 0.0, (a - b).abs()).max()) for a, b in
+                      ((getattr(got, f).detach(), getattr(want, f).detach()) for f in fields[:5]))
+    gen = torch.Generator(device=s.dev).manual_seed(seed)
+    up = [torch.randn(getattr(want, f).shape, generator=gen, device=s.dev) for f in fields[:4]]
+    leaves = {k: v for k, v in {**params, **extra}.items() if v.requires_grad}
+    # the outputs the leaves reach in the chain (a frozen opacity's reaches none), and their gradients
+    outs = [i for i, f in enumerate(fields[:4]) if getattr(want, f).requires_grad]
+    g_got = torch.autograd.grad([getattr(got, fields[i]) for i in outs], list(leaves.values()),
+                                [up[i] for i in outs], allow_unused=True)
+    s.sync()
+    counted = {k: projection.LAUNCHES[k] - before[k] for k in before}
+    g_want = torch.autograd.grad([getattr(want, fields[i]) for i in outs], list(leaves.values()),
+                                 [up[i] for i in outs], allow_unused=True)
+    up = [u if i in outs else torch.zeros_like(u) for i, u in enumerate(up)]
+    twin = projection.preprocess_backward_plain(scene, cam, *up, scale_modifier=scale_modifier,
+                                                mean2d_offset=offset, colors_precomp=colors, cov3d_precomp=cov3d)
+    err, err_abs, twin_differ = {}, {}, {}
+    for k, a, b in zip(leaves, g_got, g_want):
+        if a is None or b is None:
+            if not (a is None and (b is None or not b.any())):
+                fail(f"the preprocess backward on {what}: {k} is {a is None and 'None' or 'given'}, autograd's "
+                     f"{b is None and 'None' or 'given'}")
+            continue
+        scale = float(b.abs().max())
+        err_abs[k] = float((a - b).abs().max())
+        err[k] = err_abs[k] / scale if scale > 0 else float(a.abs().max())
+        twin_differ[k] = _bits_differ(a, twin[k])
+    census = {"gaussians": scene.capacity, "valid": int((want.radius > 0).sum()), "colour clamped": int(
+        (want.color == 0).sum())}
+    s.say(f"  preprocess kernels vs the chain on {what}: {census}; forward differing elements {differ}; backward "
+          f"max|d|/max|autograd| {{{', '.join(f'{k}: {v:.2e}' for k, v in err.items())}}} (tol "
+          f"{PREPROCESS_GRAD_TOL:.0e}), elements differing from the plain twin {twin_differ}; launches {counted}")
+    if counted != {"preprocess_forward": 1, "preprocess_backward": 1}:
+        fail(f"the preprocess on {what} launched {counted}, expected one forward and one backward")
+    if any(differ.values()):
+        fail(f"the preprocess forward kernel differs from the chain on {what}: {differ}")
+    if any(v > PREPROCESS_GRAD_TOL or v != v for v in err.values()):
+        fail(f"the preprocess backward kernel disagrees with autograd of the chain on {what}")
+    return {"differ": differ, "forward_abs": forward_abs, "backward_abs": max(err_abs.values(), default=0.0),
+            "backward_normalised": max(err.values(), default=0.0)}
+
+
+def hold_preprocess_stress(s: Smoke) -> None:
+    """The preprocess kernels on the stress set (`synthetic.preprocess_stress`)
+    at the benchmark's size, at every SH degree, with the offset, precomputed
+    colours and covariances, a scale modifier, frozen fields and sh_rest as a
+    view of wider rows (the distillation student's)."""
+    import dataclasses as dc
+
+    from lightgaussian_tpu_torch.utils import synthetic
+
+    torch = s.torch
+    n = PREPROCESS_STRESS_N
+    for degree in range(5):
+        scene, cam, cov6, _kind = synthetic.preprocess_stress(n, *COVER_SIZE, seed=40 + degree, max_sh_degree=4,
+                                                              active_sh_degree=degree, device=s.dev)
+        offset = torch.zeros((n, 2), device=s.dev)
+        hold_preprocess(s, scene, cam, f"the stress set at SH {degree} of 4 (offset)", offset=offset, seed=degree)
+    scene, cam, cov6, _kind = synthetic.preprocess_stress(n, *COVER_SIZE, seed=50, device=s.dev)
+    colors = torch.rand((n, 3), generator=torch.Generator(device=s.dev).manual_seed(1), device=s.dev)
+    hold_preprocess(s, scene, cam, "the stress set with precomputed colours, scale modifier 0.8", colors=colors,
+                    scale_modifier=0.8, seed=5)
+    hold_preprocess(s, scene, cam, "the stress set with precomputed covariances (half with det <= 0)", cov3d=cov6,
+                    seed=6)
+    wide = torch.cat([scene.sh_rest, torch.ones((n, 7, 3), device=s.dev)], dim=1)
+    student = dc.replace(scene, sh_rest=wide[:, :8], active_sh_degree=2, max_sh_degree=2)
+    hold_preprocess(s, student, cam, "the stress set at SH 2 over a view of wider sh_rest rows, opacity frozen",
+                    offset=torch.zeros((n, 2), device=s.dev), frozen=("opacity_logits",), seed=7)
+
+
+def _preprocess_bytes(n: int, k: int, offset: bool) -> tuple[int, int]:
+    """Least bytes of the forward and the backward: each input read once
+    and each output written once (PERF.md's table)."""
+    inputs = 12 + 12 + 16 + 4 + 12 + 12 * k + 1 + (8 if offset else 0)
+    outputs = 8 + 12 + 12 + 4 + 4 + 4
+    grads = 12 + 12 + 16 + 4 + 12 + 12 * k + (8 if offset else 0)
+    return n * (inputs + outputs), n * (inputs + 36 + grads)
+
+
+def time_preprocess(s: Smoke) -> None:
+    """The preprocess kernels at the benchmark's sizes: bit for bit (forward)
+    and within tolerance (backward) against the chain on a 3 M-Gaussian SH-3
+    scene drawn like 3dgs-m360's from two ring angles at 1237x822 and on a
+    1.02 M SH-2 one like lg-m360's; then their times beside their byte
+    bounds, the chain's forward and forward + backward, and the twin's."""
+    from lightgaussian_tpu_torch.models.camera import Camera
+    from lightgaussian_tpu_torch.ops.rasterize import projection
+    from lightgaussian_tpu_torch.utils.synthetic import random_scene
+
+    torch = s.torch
+    held = []
+    for n, degree, seed in ((PREPROCESS_SMALL_N, 2, 19), (COVER_SCENE_N, 3, 17)):
+        scene = random_scene(n=n, seed=seed, extent=2.0, scale_range=(0.004, 0.02), max_sh_degree=degree,
+                             device=s.dev)
+        offset = torch.zeros((n, 2), device=s.dev)
+        for t in (0.0, 2.0):
+            cam = Camera.look_at(orbit_eye(t), [0, 0, 0], fovx=0.9, width=COVER_SIZE[0], height=COVER_SIZE[1],
+                                 device=s.dev)
+            held.append(hold_preprocess(s, scene, cam, f"{n} Gaussians at SH {degree} from ring angle {t} at "
+                                        f"{COVER_SIZE[0]}x{COVER_SIZE[1]} (offset)", offset=offset, seed=int(t)))
+    # times at 3 M, SH 3, as the training step runs it (offset given, every parameter differentiated)
+    params = {k: v.detach().clone().requires_grad_(True) for k, v in scene.params().items()}
+    off = offset.clone().requires_grad_(True)
+    live = scene.with_params(params)
+    leaves = [*params.values(), off]
+    with torch.no_grad():
+        fwd_ms = s.event_ms(lambda: projection.preprocess(live, cam, mean2d_offset=off))
+    out = projection.preprocess(live, cam, mean2d_offset=off)
+    up = [torch.randn_like(t) for t in (out.mean2d, out.conic, out.color, out.opacity)]
+    outs = [out.mean2d, out.conic, out.color, out.opacity]
+    bwd_ms = s.event_ms(lambda: torch.autograd.grad(outs, leaves, up, retain_graph=True))
+    chain_ms = s.host_ms(lambda: projection.plain_preprocess(live, cam, mean2d_offset=off))
+
+    def chain_both():
+        o = projection.plain_preprocess(live, cam, mean2d_offset=off)
+        torch.autograd.grad([o.mean2d, o.conic, o.color, o.opacity], leaves, up)
+
+    chain_both_ms = s.host_ms(chain_both)
+    twin_ms = s.host_ms(lambda: projection.preprocess_backward_plain(scene, cam, *up, mean2d_offset=offset))
+    f_bytes, b_bytes = _preprocess_bytes(COVER_SCENE_N, scene.sh_rest.shape[1], True)
+    replaces = "none: the preprocess of lightgaussian_tpu/ops/rasterize/projection.py is XLA ops"
+    # the errors are the largest of the holds above, at both sizes and both angles
+    f_bound = s.row("preprocess_forward", "preprocess.cu", replaces, max(h["forward_abs"] for h in held), fwd_ms,
+                    chain_ms, 0.0, f_bytes / PEAK_BYTES, None)
+    b_bound = s.row("preprocess_backward", "preprocess.cu", replaces, max(h["backward_abs"] for h in held), bwd_ms,
+                    chain_both_ms - chain_ms, 0.0, b_bytes / PEAK_BYTES, None)
+    # the number held against PREPROCESS_GRAD_TOL
+    s.rows["preprocess_backward"]["max_err_normalised"] = max(h["backward_normalised"] for h in held)
+    s.say(f"  preprocess_forward at 3 M Gaussians, SH 3, {COVER_SIZE[0]}x{COVER_SIZE[1]}: {fwd_ms:.4f} ms/launch "
+          f"(CUDA events, {TIMING_REPS} launches), bound {f_bound:.4f} ms ({f_bytes / 1e6:.0f} MB at "
+          f"{PEAK_BYTES / 1e12:.2f} TB/s, {f_bytes / fwd_ms / 1e6:.0f} GB/s achieved); the chain {chain_ms:.3f} ms "
+          f"(host, median of {PLAIN_REPS})")
+    s.say(f"  preprocess_backward at 3 M Gaussians, SH 3: {bwd_ms:.4f} ms a differentiated render (CUDA events, "
+          f"autograd.grad over {TIMING_REPS} calls), bound {b_bound:.4f} ms ({b_bytes / 1e6:.0f} MB, "
+          f"{b_bytes / bwd_ms / 1e6:.0f} GB/s achieved); the chain's forward + autograd backward "
+          f"{chain_both_ms:.3f} ms, the plain twin {twin_ms:.3f} ms (host, medians of {PLAIN_REPS}); no PyTorch "
+          f"call computes a preprocess, library_ms null")
+
+
 def time_tools(s: Smoke) -> None:
     """B8 at the JAX package's profiled shape beside `contiguous()`, and the
     probe's rates beside the constants the bounds assume. Neither lies on a
@@ -1263,6 +1477,7 @@ def phase3(s: Smoke, tmp: Path) -> dict:
         whole.append(1e3 * (time.perf_counter() - t0))
         runs.append(stage_marks.stop())
     s.serving_frame_ms = statistics.median(whole)
+    s.serving_frame = (loaded, cams[0], bg)
     s.say(f"  render(fast=True) 1920x1080, 300k Gaussians SH 3: median "
           f"{s.serving_frame_ms:.3f} ms/frame over {N_VIEWS} views")
     stage_split(s, runs, SERVE_STAGES, whole, "render(fast=True)")
@@ -1271,6 +1486,7 @@ def phase3(s: Smoke, tmp: Path) -> dict:
     time_counting_kernel(s, b0, grid, loaded.capacity)
     time_tools(s)
     time_cover(s)
+    time_preprocess(s)
     print("phase 3 ok", flush=True)
     return launches_cli
 
@@ -1459,7 +1675,8 @@ def phase4(s: Smoke, blur_errors: dict) -> dict:
         step_loss.append(float(m.loss))
     train_counts = read_counts()
     s.say(f"  {TRAIN_STEPS} training steps: launches {train_counts}")
-    per_step = ("blend_forward", "blend_backward", "blur3", "blur", "bin_cover")
+    per_step = ("blend_forward", "blend_backward", "blur3", "blur", "bin_cover", "preprocess_forward",
+                "preprocess_backward")
     if train_counts != expected(train_counts, {k: TRAIN_STEPS for k in per_step}):
         fail(f"the training steps made launches {train_counts}, not one each of {per_step} a step")
     s.say(f"  loss per step: {', '.join(f'{v:.5f}' for v in step_loss)}")
@@ -1995,9 +2212,13 @@ def phase6(s: Smoke, tmp: Path) -> dict:
         paths[f"render_video {what}"] = read_counts()
         # a frame that rebins (fresh, or a keyframe whose binning the next frames reuse) bins once, and again
         # when it grows the cut; a reused frame does not bin
-        bins = sum(plan_ell if what == "ellipse" else plan) + len(grows)
+        flags = plan_ell if what == "ellipse" else plan
+        bins = sum(flags) + len(grows)
+        # each render preprocesses once, and so does each keyframe's binning (a rebin that is not a fresh frame)
+        fresh = sum(f and not (i + 1 < len(flags) and not flags[i + 1]) for i, f in enumerate(flags))
         _launches_of(s, f"render_video --{what}", paths[f"render_video {what}"],
-                     {"blend_forward_fast": VIDEO_FRAMES + renders_again, "bin_cover": bins})
+                     {"blend_forward_fast": VIDEO_FRAMES + renders_again, "bin_cover": bins,
+                      "preprocess_forward": VIDEO_FRAMES + bins - fresh})
         pngs = sorted((out_c / render_sets.TRAJECTORY_DIRS[what] / f"ours_{DISTILL_TO}").glob("*.png"))
         if len(pngs) != VIDEO_FRAMES:
             fail(f"render_video --{what} wrote {len(pngs)} frames, not {VIDEO_FRAMES}")
@@ -2799,7 +3020,17 @@ def phase9(s: Smoke, tmp: Path) -> dict:
         # binning)
         bins = (1 + n + 2 * (warm + n) + (1 + key_c) + n + (1 + b["n_rebin"])
                 + (n if b["n_rebin"] < n else 0))
-        _launches_of(s, what, paths[what], {"blend_forward": 1, "blend_forward_fast": fast, "bin_cover": bins})
+
+        def keyframes(flags):  # a schedule's keyframes that bin apart from a render (the next frame reuses them)
+            return sum(f and i + 1 < len(flags) and not flags[i + 1] for i, f in enumerate(flags))
+
+        # a render preprocesses once, and so does each binning apart from a render: a schedule's warm-up binning
+        # and keyframes, and each rebinned frame of a PSNR sweep
+        flags_c = [i % args.rebin_every == 0 for i in range(n)]
+        apart = ((1 + keyframes(flags_c) + key_c) + (1 + keyframes(b["flags_d"]))
+                 + (b["n_rebin"] if b["n_rebin"] < n else 0))
+        _launches_of(s, what, paths[what], {"blend_forward": 1, "blend_forward_fast": fast, "bin_cover": bins,
+                                            "preprocess_forward": 1 + fast + apart})
         gated = ("D",) if not extra else ("C", "D")
         for k in gated:
             if not b["worst_psnr"][k] > REUSED_PSNR_MIN:
@@ -2818,7 +3049,8 @@ def phase9(s: Smoke, tmp: Path) -> dict:
     _launches_of(s, "roofline", paths["roofline"], {
         "issue_probe": len(issue_probe.KINDS) * 2 * (1 + issue_probe.REPS), "blend_forward": steps + 1,
         "blend_backward": steps, "blur3": steps, "blur": steps + 1,
-        "bin_cover": steps + 2})  # and section (b)'s binning, whose order it gathers by
+        "bin_cover": steps + 2,  # and section (b)'s binning, whose order it gathers by
+        "preprocess_forward": steps + 3})  # and the preprocess of (b)'s binning and of (c)'s byte floors
     stream = rl["memory"]["stream_bytes_per_s"]
     s.say(f"  roofline: measured stream {stream / 1e12:.4f} TB/s against PEAK_BYTES {PEAK_BYTES / 1e12:.2f} TB/s "
           f"({stream / PEAK_BYTES:.3f}); the step's stages {rl['step']['step_ms']:.3f} ms against a byte floor of "
@@ -2832,22 +3064,25 @@ def phase9(s: Smoke, tmp: Path) -> dict:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Within it, the training path's kernels (B1, B2, B3, B4 and the tile
-    cover) run their plain PyTorch versions on the card: the callers reach
-    the wrappers as module attributes."""
+    """Within it, the training path's kernels (B1, B2, B3, B4, the tile
+    cover and the preprocess) run their plain PyTorch versions on the card:
+    the callers reach the wrappers as module attributes (the render reaches
+    the preprocess as `api.preprocess`)."""
     from lightgaussian_tpu_torch.ops import losses
-    from lightgaussian_tpu_torch.ops.rasterize import binning, blend
+    from lightgaussian_tpu_torch.ops.rasterize import api, binning, blend, projection
 
-    saved = (blend.blend_forward, blend.blend_backward, losses.blur, losses.blur3, binning._cover)
+    saved = (blend.blend_forward, blend.blend_backward, losses.blur, losses.blur3, binning._cover, api.preprocess)
     blend.blend_forward = lambda ts, inst, grid: blend.plain_blend(ts, inst, grid, exact=True)[:2]
     blend.blend_backward = lambda ts, inst, gid, tg, tr, grid, n: blend.reduce_per_gaussian(
         blend.plain_blend_backward(ts, inst, tg, tr, grid)[0], gid, n)
     losses.blur, losses.blur3 = losses.plain_blur, losses.plain_blur3
     binning._cover = binning.plain_cover
+    api.preprocess = projection.plain_preprocess
     try:
         yield
     finally:
-        blend.blend_forward, blend.blend_backward, losses.blur, losses.blur3, binning._cover = saved
+        (blend.blend_forward, blend.blend_backward, losses.blur, losses.blur3, binning._cover,
+         api.preprocess) = saved
 
 
 def phase10(s: Smoke, tmp: Path) -> dict:
@@ -2855,8 +3090,8 @@ def phase10(s: Smoke, tmp: Path) -> dict:
     with its trace read through, the binning profilers and the backward
     profiler; returns each path's launch counts."""
     from lightgaussian_tpu_torch.ops import sh as sh_ops
-    from lightgaussian_tpu_torch.ops.rasterize import blend, tiled
-    from lightgaussian_tpu_torch.scripts import (bench, profile_binning, profile_binning_infer, profile_bwd,
+    from lightgaussian_tpu_torch.ops.rasterize import blend, render, tiled
+    from lightgaussian_tpu_torch.scripts import (bench, harness, profile_binning, profile_binning_infer, profile_bwd,
                                                  profile_step)
 
     torch = s.torch
@@ -2882,8 +3117,8 @@ def phase10(s: Smoke, tmp: Path) -> dict:
         want = args.batch * bench.WIDTH * bench.HEIGHT / (line["median_ms"] * 1e-3)
         if set(line) != {"metric", "value", "unit", "median_ms", "spread_ms", "groups"} or abs(line["value"] - want) > 0.5:
             fail(f"{label}: the line {line} does not hold value = pixels / median ({want:.1f})")
-    # the bench step's gradients against the same loss through the plain versions of B1-B4 and the cover, by B2's
-    # rules
+    # the bench step's gradients against the same loss through the plain versions of B1-B4, the cover and the
+    # preprocess, by B2's rules
     step = bench.setup(1, s.dev)
     loss_k, grads_k, live = step()
     with plain_kernels():
@@ -2894,8 +3129,8 @@ def phase10(s: Smoke, tmp: Path) -> dict:
             fail(f"the plain step launched kernels: {read_counts()}")
     worst = hold_gradients("the bench step against its plain kernels", grads_k, grads_p)
     rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    s.say(f"  bench step ({live} live instances) against the plain versions of B1-B4 and the cover: loss "
-          f"{float(loss_k):.7f} vs {float(loss_p):.7f} (rel {rel:.2e}); largest gradient difference {worst:.2e} of "
+    s.say(f"  bench step ({live} live instances) against the plain versions of B1-B4, the cover and the preprocess: "
+          f"loss {float(loss_k):.7f} vs {float(loss_p):.7f} (rel {rel:.2e}); largest gradient difference {worst:.2e} of "
           f"its field's largest")
     del step, grads_k, grads_p
 
@@ -2906,7 +3141,7 @@ def phase10(s: Smoke, tmp: Path) -> dict:
     paths["profile_binning"] = read_counts()
     # the composition and the whole once each, then the cover piece and the whole timed both ways
     _launches_of(s, "profile_binning", paths["profile_binning"],
-                 {"bin_cover": 2 + 2 * 2 * (3 + profile_binning.REPS)})
+                 {"bin_cover": 2 + 2 * 2 * (3 + profile_binning.REPS), "preprocess_forward": 1})
     if not r["bit_equal"]:
         fail("binning's pieces composed in order differ from bin_splats")
     lo, hi = PIECES_RATIO
@@ -2924,12 +3159,24 @@ def phase10(s: Smoke, tmp: Path) -> dict:
         if not r["binning"]["bit_equal"] or not paths[what]["blend_forward_fast"]:
             fail(f"{what}: pieces bit-equal {r['binning']['bit_equal']}, launches {paths[what]}")
         if extra:
-            fresh = r["rows"]["fresh frame (render(fast=True))"]
-            ratio = fresh / s.serving_frame_ms
-            s.say(f"  {what}: fresh frame {fresh:.3f} ms against phase 3's serving frame {s.serving_frame_ms:.3f} "
-                  f"ms ({ratio:.3f}x)")
+            # the profiler's fresh frame and phase 3's serving frame, both host-paced (one launch a preprocess,
+            # binning's one synchronise), timed the profiler's way in turns here: medians of FRESH_GROUPS groups,
+            # so that a stall of the host hits both sides or one group
+            scene_p, cam_p, bg_p, _live, cap_p = profile_binning_infer.frame_inputs("large", s.dev)
+            loaded, cam_s, bg_s = s.serving_frame
+            sides = {"fresh": (lambda: render(scene_p, cam_p, bg_p, max_instances=cap_p, fast=True), []),
+                     "serving": (lambda: render(loaded, cam_s, bg_s, fast=True), [])}
+            for _ in range(FRESH_GROUPS):
+                for fn, times in sides.values():
+                    times.append(harness.ms_per_call(torch.no_grad()(fn), s.dev, reps=FRESH_REPS))
+            fresh, serving = (statistics.median(times) for _fn, times in sides.values())
+            ratio = fresh / serving
+            s.say(f"  {what}: fresh frame {fresh:.3f} ms against phase 3's serving frame {serving:.3f} ms in turns "
+                  f"({ratio:.3f}x; medians of {FRESH_GROUPS} groups of {FRESH_REPS}, CUDA events); the profiler's "
+                  f"row {r['rows']['fresh frame (render(fast=True))']:.3f} ms, phase 3's {s.serving_frame_ms:.3f} ms")
             if not 1.0 / FRESH_VS_SERVING <= ratio <= FRESH_VS_SERVING:
                 fail(f"{what}: the fresh frame is {ratio:.3f} x phase 3's serving frame")
+            del scene_p, sides
 
     # 10d: the backward piece by piece; its B2 seed is what the autograd blend hands B2
     reset_counts()
@@ -3083,7 +3330,7 @@ def main() -> int:
                                else trainer_counts if name == "blend_count" else counts["train"])[name]
         row["launches_by_path"] = {path: c[name] for path, c in by_path.items() if c.get(name)}
     order = ("blend_forward", "blend_forward_fast", "blend_backward", "blur3", "blur", "blur5", "blend_count",
-             "unchunk_transpose", "issue_probe", "bin_cover")
+             "unchunk_transpose", "issue_probe", "bin_cover", "preprocess_forward", "preprocess_backward")
     print(json.dumps({"kernels": [s.rows[k] for k in order]}))
     print(s.card)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,7 @@ from pathlib import Path
 import torch
 
 from lightgaussian_tpu_torch.ops import losses
-from lightgaussian_tpu_torch.ops.rasterize import binning, blend
+from lightgaussian_tpu_torch.ops.rasterize import binning, blend, projection
 from lightgaussian_tpu_torch.utils import issue_probe
 
 
@@ -89,7 +89,7 @@ def host_ms_per_call(fn, device: torch.device, reps: int = 20, warmup: int = 3) 
 def launch_counts() -> dict:
     """Launches of every hand-written kernel so far (a wrapper counts only
     where it launches its kernel: on the CPU all stay 0)."""
-    return {**blend.LAUNCHES, **losses.LAUNCHES, **issue_probe.LAUNCHES, **binning.LAUNCHES}
+    return {**blend.LAUNCHES, **losses.LAUNCHES, **issue_probe.LAUNCHES, **binning.LAUNCHES, **projection.LAUNCHES}
 
 
 class StageLog:
@@ -140,6 +140,8 @@ HAND_WRITTEN = {
     "unchunk_transpose": r"unchunk_transpose_kernel",
     "issue_probe": r"probe_kernel",
     "bin_cover": r"bin_cover_kernel",
+    "preprocess_forward": r"preprocess_forward_kernel",
+    "preprocess_backward": r"preprocess_backward_kernel",
 }
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _HOST_CATS = ("cpu_op", "cuda_runtime")
@@ -155,7 +157,7 @@ def trace_summary(trace_json) -> dict:
       streams (the idle share of a step divides it by a step run without the
       profiler, which slows the host: `profile_step` does);
     - `launches`: kernel events by name, and `hand_written` those of the
-      ten hand-written kernels by launch counter (`HAND_WRITTEN`);
+      twelve hand-written kernels by launch counter (`HAND_WRITTEN`);
     - `top_ops`: the TOP device ops by total time, (name, total, count);
     - `gaps`: the TOP longest idle stretches inside the window, (start,
       length, the host op running when it began: the deepest `cpu_op` or

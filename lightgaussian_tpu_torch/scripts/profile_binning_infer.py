@@ -39,19 +39,28 @@ POINTS = {"default": (120_000, 1237, 822, 2), "large": (300_000, 1920, 1080, 3)}
 REPS = 30
 
 
-def run(args) -> dict:
-    dev = resolve_device(args.device)
-    card = harness.card_line(dev)
-    point = "large" if args.large else "default"
+def frame_inputs(point: str, dev: torch.device):
+    """The operating point's scene, camera and background, its live
+    instances and the snug cut: `render(scene, cam, bg, max_instances=cap,
+    fast=True)` is its fresh frame."""
     n, width, height, degree = POINTS[point]
     scene = random_scene(n=n, seed=0, extent=2.0, scale_range=(0.004, 0.02), active_sh_degree=degree, device=dev)
     cam = Camera.look_at(eye=[5.0 * 0.19867, 0.6, -5.0 * 0.98007], target=[0, 0, 0], width=width, height=height,
                          fovx=0.9, device=dev)
     bg = torch.zeros(3, device=dev)
-    grid = make_grid(width, height)
     with torch.no_grad():
         live = render(scene, cam, bg, max_instances=default_max_instances(scene)).num_instances
-        cap = snug_capacity(live)
+    return scene, cam, bg, live, snug_capacity(live)
+
+
+def run(args) -> dict:
+    dev = resolve_device(args.device)
+    card = harness.card_line(dev)
+    point = "large" if args.large else "default"
+    n, width, height, degree = POINTS[point]
+    scene, cam, bg, live, cap = frame_inputs(point, dev)
+    grid = make_grid(width, height)
+    with torch.no_grad():
         splats = preprocess(scene, cam)
         b = bin_splats(splats, grid, cap)
     print(f"profile_binning_infer ({point}) on {card}: {n} Gaussians SH {degree} at {width}x{height}; live {live}, "

@@ -53,7 +53,7 @@ def make_distill_step(
     def distill_step(state: TrainState, teacher: GaussianScene, camera: Camera, bg: torch.Tensor):
         with torch.no_grad():
             teacher_img = render(teacher, camera, bg, max_instances=max_instances, fast=teacher_fast).render
-        params = param_leaves(state.scene)
+        params = param_leaves(state.scene, frozen_fields)
         out = render(state.scene.with_params(params), camera, bg, max_instances=max_instances)
         l1 = losses.l1_loss(out.render, teacher_img)
         ssim_v = losses.ssim(out.render, teacher_img)

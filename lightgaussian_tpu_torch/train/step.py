@@ -75,7 +75,7 @@ def make_train_step(
                 "attach one with camera.with_gt(img)."
             )
         old = state.scene
-        params = param_leaves(old)
+        params = param_leaves(old, frozen_fields)
         scene = old.with_params(params)
         offsets = [torch.zeros((state.capacity, 2), dtype=torch.float32, device=old.means.device,
                                requires_grad=True) for _ in range(B)]
@@ -137,22 +137,22 @@ def make_train_step(
     return train_step
 
 
-def param_leaves(scene) -> dict[str, torch.Tensor]:
-    """The scene's parameters as fresh leaves that require a gradient."""
-    return {k: v.detach().requires_grad_(True) for k, v in scene.params().items()}
+def param_leaves(scene, frozen_fields: tuple = ()) -> dict[str, torch.Tensor]:
+    """The scene's parameters as fresh leaves, those of `frozen_fields`
+    without a gradient (so that no backward computes one)."""
+    return {k: v.detach().requires_grad_(k not in frozen_fields) for k, v in scene.params().items()}
 
 
 def gradients(loss: torch.Tensor, params: dict, frozen_fields: tuple = (), extra: tuple = ()):
     """(gradient of each parameter, gradients of `extra`) of `loss`. A
     tensor the loss does not reach (sh_rest at SH degree 0) has a zero
     gradient, and so has every field of `frozen_fields`."""
-    names = list(params)
+    names = [k for k, v in params.items() if v.requires_grad and k not in frozen_fields]
     leaves = [params[k] for k in names] + list(extra)
     got = torch.autograd.grad(loss, leaves, allow_unused=True)
     got = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, got)]
-    grads = dict(zip(names, got))
-    for f in frozen_fields:
-        grads[f] = torch.zeros_like(grads[f])
+    grads = {k: torch.zeros_like(v) for k, v in params.items()}
+    grads.update(zip(names, got))
     return grads, tuple(got[len(names):])
 
 

@@ -6,6 +6,8 @@ bit-identical arrays in both packages.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -138,3 +140,90 @@ def cover_stress_splats(kind: str, n: int, width: int, height: int, seed: int = 
         depth=as_t(rng.uniform(1.0, 9.0, n).astype(f32)),
         radius=as_t(radius.astype(np.int32), torch.int32),
     )
+
+
+PREPROCESS_STRESS_KINDS = ("ordinary", "dead", "near_plane", "tz_clamp", "fov_clamp", "colour_clamp",
+                           "scales", "offscreen")
+
+
+def preprocess_stress(n: int, width: int, height: int, seed: int = 0, max_sh_degree: int = 3,
+                      active_sh_degree: int | None = None, device: str | torch.device = "cuda"):
+    """(scene, camera, cov3d_precomp, kind) that stress the preprocess at
+    every edge of its chain: a camera at the origin looking down +z with an
+    identity `world_view` (so a Gaussian's camera-space position is its mean,
+    exactly), and n Gaussians whose kind (`PREPROCESS_STRESS_KINDS`, int64
+    index per Gaussian, in turn) is:
+
+    - "ordinary": in front of the camera, within the frustum;
+    - "dead": ordinary but not alive;
+    - "near_plane": z at, one ulp above and below the near plane 0.2, or behind
+      the camera;
+    - "tz_clamp": z at the EWA clamp 1e-6, at 0, or negative;
+    - "fov_clamp": x / z or y / z exactly at 1.3 tan(fov / 2) (either sign),
+      or past it;
+    - "colour_clamp": DC bands of a black point (`rgb_to_sh(0)`, which lands
+      on the colour clamp's 0 exactly) and higher bands 0, on some channels;
+    - "scales": sizes from e^-12 (a point) to e^2 (larger than the view);
+    - "offscreen": far outside the image on either side.
+
+    `cov3d_precomp` ([n, 6]) holds a valid covariance for every other round
+    of the kinds and an indefinite one (det <= 0 after the projection) for
+    the rest."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    scene = random_scene(n, seed, max_sh_degree, active_sh_degree, device="cpu")
+    camera = Camera.from_Rt(np.eye(3), np.zeros(3), 0.9, 2.0 * np.arctan(np.tan(0.45) * height / width), width,
+                            height, device="cpu")
+    limx, limy = float(1.3 * camera.tan_fovx), float(1.3 * camera.tan_fovy)
+    kind = np.arange(n) % len(PREPROCESS_STRESS_KINDS)
+    z = rng.uniform(1.0, 8.0, n).astype(f32)
+    x = (rng.uniform(-0.9, 0.9, n) * limx / 1.3 * z).astype(f32)
+    y = (rng.uniform(-0.9, 0.9, n) * limy / 1.3 * z).astype(f32)
+    alive = np.ones(n, bool)
+    alive[kind == 1] = False
+    near = np.array([0.2, np.nextafter(f32(0.2), f32(1)), np.nextafter(f32(0.2), f32(0)), -1.0, 0.0], f32)
+    sel = kind == 2
+    z[sel] = near[rng.integers(0, len(near), sel.sum())]
+    tzs = np.array([1e-6, 0.0, -0.5, np.nextafter(f32(1e-6), f32(1))], f32)
+    sel = kind == 3
+    z[sel] = tzs[rng.integers(0, len(tzs), sel.sum())]
+    sel = np.flatnonzero(kind == 4)
+    z[sel] = np.array([1.0, 2.0, 4.0], f32)[rng.integers(0, 3, sel.size)]  # powers of two: lim * z is exact
+    side = rng.integers(0, 4, sel.size)
+    past = rng.uniform(1.0, 3.0, sel.size)
+    x[sel] = np.where(side == 0, f32(limx) * z[sel], np.where(side == 1, -f32(limx) * z[sel],
+                                                               (past * limx * z[sel]).astype(f32)))
+    y[sel] = np.where(side == 2, f32(limy) * z[sel], np.where(side == 3, -f32(limy) * z[sel], y[sel]))
+    sel = kind == 7
+    x[sel] = (rng.choice([-1.0, 1.0], sel.sum()) * rng.uniform(2.0, 20.0, sel.sum()) * z[sel]).astype(f32)
+    means = np.stack([x, y, z], axis=1)
+    sh_dc = scene.sh_dc.numpy().copy()
+    sh_rest = scene.sh_rest.numpy().copy()
+    sel = np.flatnonzero(kind == 5)
+    black = (f32(0.0) - f32(0.5)) / f32(sh_ops.C0)  # rgb_to_sh(0), a float32 division
+    channels = rng.random((sel.size, 3)) < 0.67
+    sh_dc[sel] = np.where(channels, black, sh_dc[sel])
+    sh_rest[sel] = 0.0
+    log_scales = scene.log_scales.numpy().copy()
+    sel = kind == 6
+    # one size per Gaussian, the axes within e^0.5 of it (a covariance of axes many orders apart is
+    # ill-conditioned: two float32 orders of its chain rule differ there by more than rounding)
+    log_scales[sel] = (rng.uniform(-12.0, 2.0, (sel.sum(), 1)) + rng.uniform(-0.5, 0.5, (sel.sum(), 3))).astype(f32)
+    # an SPD covariance L L^T; on odd rows a negative yy, so that the 2D covariance's det is negative
+    L = rng.normal(0.0, 0.05, (n, 3, 3))
+    cov = np.einsum("nij,nkj->nik", L, L)
+    odd = (np.arange(n) // len(PREPROCESS_STRESS_KINDS)) % 2 == 1
+    cov[odd, 1, 1] = -rng.uniform(0.01, 0.05, odd.sum())
+    cov6 = np.stack([cov[:, 0, 0], cov[:, 0, 1], cov[:, 0, 2], cov[:, 1, 1], cov[:, 1, 2], cov[:, 2, 2]], axis=1)
+
+    def as_t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+
+    dev = torch.device(device)
+    scene = dataclasses.replace(scene, means=as_t(means), sh_dc=as_t(sh_dc), sh_rest=as_t(sh_rest),
+                                log_scales=as_t(log_scales), quats=scene.quats.to(dev),
+                                opacity_logits=scene.opacity_logits.to(dev),
+                                alive=torch.from_numpy(alive).to(dev))
+    camera = dataclasses.replace(camera, **{k: getattr(camera, k).to(dev) for k in
+                                            ("world_view", "full_proj", "camera_center", "tan_fovx", "tan_fovy")})
+    return scene, camera, as_t(cov6), torch.from_numpy(kind)

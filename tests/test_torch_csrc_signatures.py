@@ -16,13 +16,13 @@ import pytest
 import torch
 
 from lightgaussian_tpu_torch.ops import losses
-from lightgaussian_tpu_torch.ops.rasterize import binning, blend
+from lightgaussian_tpu_torch.ops.rasterize import binning, blend, projection
 from lightgaussian_tpu_torch.utils import cuda_build, issue_probe
 
 torch.set_num_threads(1)
 
 LOADERS = (blend._forward_library, blend._backward_library, blend._unchunk_library, losses._library,
-           issue_probe._library, binning._library)
+           issue_probe._library, binning._library, projection._library)
 
 
 def _entry_points() -> dict:
@@ -63,7 +63,7 @@ def test_every_source_has_entry_points():
     sources = {src for src, _ in ENTRY_POINTS.values()}
     assert sources == {p.name for p in cuda_build.CSRC.glob("*.cu")}
     assert {"lg_blend_forward", "lg_blend_forward_fast", "lg_blend_count", "lg_blend_backward",
-            "lg_ssim_blur"} <= set(ENTRY_POINTS)
+            "lg_ssim_blur", "lg_bin_cover", "lg_preprocess_forward", "lg_preprocess_backward"} <= set(ENTRY_POINTS)
 
 
 @pytest.mark.parametrize("symbol", sorted(ENTRY_POINTS))

@@ -37,7 +37,7 @@ from lightgaussian_tpu.ops.rasterize import render as jrender
 from lightgaussian_tpu.utils import synthetic as jsyn
 from lightgaussian_tpu_torch import convert
 from lightgaussian_tpu_torch.ops.rasterize import binning as tb
-from lightgaussian_tpu_torch.ops.rasterize import blend, tiled
+from lightgaussian_tpu_torch.ops.rasterize import blend, render, tiled
 from lightgaussian_tpu_torch.ops.rasterize.projection import Splats, preprocess
 from lightgaussian_tpu_torch.ops import losses as tl
 from lightgaussian_tpu_torch.scripts import (bench, harness, profile_binning, profile_binning_infer, profile_bwd,
@@ -247,7 +247,7 @@ def test_trace_summary_on_a_hand_written_trace(tmp_path):
     assert got["launches"] == {B1_NAME: 2, B2_NAME: 1, B3_NAME: 1, B4_NAME: 1, ELEMENTWISE: 1, B7_MANGLED: 1}
     assert got["hand_written"] == {"blend_forward": 2, "blend_forward_fast": 0, "blend_count": 0, "blend_backward": 1,
                                    "blur": 1, "blur3": 1, "blur5": 1, "unchunk_transpose": 0, "issue_probe": 0,
-                                   "bin_cover": 0}
+                                   "bin_cover": 0, "preprocess_forward": 0, "preprocess_backward": 0}
     assert got["top_ops"] == [(B1_NAME, 100.0, 2), (B2_NAME, 60.0, 1), (B3_NAME, 40.0, 1), (B4_NAME, 30.0, 1),
                               ("Memcpy DtoH (Device -> Pageable)", 20.0, 1), ("Memset (Device)", 10.0, 1),
                               (B7_MANGLED, 10.0, 1), (ELEMENTWISE, 5.0, 1)]
@@ -275,6 +275,17 @@ def _tiny(monkeypatch):
     monkeypatch.setattr(profile_step, "REPS", 1)
     monkeypatch.setattr(profile_binning_infer, "POINTS", {"default": (800, 80, 48, 2), "large": (1000, W, H, 3)})
     monkeypatch.setattr(profile_binning_infer, "REPS", 1)
+
+
+def test_binning_infer_frame_inputs_give_its_fresh_frame(monkeypatch):
+    """`frame_inputs` is the operating point the profiler's fresh frame row
+    renders (and the smoke's phase 10c times beside the serving frame)."""
+    _tiny(monkeypatch)
+    scene, cam, bg, live, cap = profile_binning_infer.frame_inputs("large", CPU)
+    assert (scene.capacity, scene.active_sh_degree, cam.width, cam.height) == (1000, 3, W, H)
+    assert live > 0 and cap == tb.snug_capacity(live)
+    with torch.no_grad():
+        assert render(scene, cam, bg, max_instances=cap, fast=True).num_instances == live
 
 
 @pytest.mark.parametrize("name, argv, rows", [
