@@ -5,7 +5,8 @@ Usage: python3 chip_smoke.py        (from the repository root; needs one CUDA ca
 
 Phases, each of which exits non-zero on failure:
   1. The card (nvidia-smi name and power limit) and the kernels' build: the
-     seven CUDA sources compiled at once, one nvcc each, with ptxas's
+     seven CUDA sources of the kernel table (`utils/cuda_build.py`)
+     compiled at once, one nvcc each, and loaded, with ptxas's
      registers, spills and shared memory for every kernel (the forward,
      counting and backward blends, their tile-ordering kernel included, and
      the preprocess forward and backward at each SH degree).
@@ -245,6 +246,8 @@ Phases, each of which exits non-zero on failure:
      the counting blend (B5) as in phase 2 at full size; then
      `api.render(fast=True)` with no cut reports the same live count, none
      cut, and B6's image within KERNEL_TOL.
+Launches are read from the kernel table's counters, one for each of the
+twelve counted kernels (`cuda_build.launch_counts`).
 From phase 3 on, every binning launches the tile cover once: a path's
 expected launches hold one `bin_cover` a render (a B1, B6 or B5 launch),
 and the paths that bin otherwise (cached trajectory frames, the binning
@@ -590,20 +593,13 @@ class Smoke:
 
 
 def build_kernels(s: Smoke) -> None:
-    from lightgaussian_tpu_torch.ops import losses
-    from lightgaussian_tpu_torch.ops.rasterize import binning, blend, projection
-    from lightgaussian_tpu_torch.utils import cuda_build, issue_probe
+    """Build every source of the kernel table at once and load each."""
+    from lightgaussian_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
-    libs = cuda_build.build(blend.FORWARD_SOURCE, blend.BACKWARD_SOURCE, losses.SOURCE,
-                            blend.UNCHUNK_SOURCE, issue_probe.SOURCE, binning.COVER_SOURCE, projection.SOURCE)
-    blend._forward_library()
-    blend._backward_library()
-    losses._library()
-    blend._unchunk_library()
-    issue_probe._library()
-    binning._library()
-    projection._library()
+    libs = cuda_build.build(*cuda_build.SOURCES)
+    for source in cuda_build.SOURCES:
+        cuda_build.load(source)
     s.say(f"phase 1 ok: built {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s")
     for lib in libs:
         print(f"-- {lib.with_suffix('.log').name}")
@@ -611,23 +607,18 @@ def build_kernels(s: Smoke) -> None:
 
 
 def reset_counts() -> None:
-    from lightgaussian_tpu_torch.ops import losses
-    from lightgaussian_tpu_torch.ops.rasterize import binning, blend, projection
-    from lightgaussian_tpu_torch.utils import issue_probe
+    """Zero the kernel table's launch counters and binning's instance counters."""
+    from lightgaussian_tpu_torch.ops.rasterize import binning
+    from lightgaussian_tpu_torch.utils import cuda_build
 
-    blend.reset_launch_counts()
-    losses.reset_launch_counts()
-    issue_probe.reset_launch_counts()
-    binning.reset_launch_counts()
-    projection.reset_launch_counts()
+    cuda_build.reset_launch_counts()
+    binning.reset_instances()
 
 
 def read_counts() -> dict:
-    from lightgaussian_tpu_torch.ops import losses
-    from lightgaussian_tpu_torch.ops.rasterize import binning, blend, projection
-    from lightgaussian_tpu_torch.utils import issue_probe
+    from lightgaussian_tpu_torch.utils import cuda_build
 
-    return {**blend.LAUNCHES, **losses.LAUNCHES, **issue_probe.LAUNCHES, **binning.LAUNCHES, **projection.LAUNCHES}
+    return cuda_build.launch_counts()
 
 
 def expected(counts: dict, want: dict) -> dict:
@@ -1077,10 +1068,10 @@ def hold_cover(s: Smoke, splats, grid, what: str) -> dict:
     from lightgaussian_tpu_torch.ops.rasterize import binning
 
     torch = s.torch
-    launched = binning.LAUNCHES["bin_cover"]
+    launched = read_counts()["bin_cover"]
     got = binning._cover(splats, grid)
     s.sync()
-    if binning.LAUNCHES["bin_cover"] != launched + 1:
+    if read_counts()["bin_cover"] != launched + 1:
         fail(f"the cover on {what} did not launch its kernel once")
     want = binning.plain_cover(splats, grid)
     live = want.count > 0
@@ -1180,7 +1171,7 @@ def hold_preprocess(s: Smoke, scene, cam, what: str, offset=None, colors=None, c
              (("mean2d_offset", offset), ("colors_precomp", colors), ("cov3d_precomp", cov3d)) if t is not None}
     args = (extra.get("mean2d_offset"), extra.get("colors_precomp"), extra.get("cov3d_precomp"))
     live = scene.with_params(params)
-    before = dict(projection.LAUNCHES)
+    before = {k: read_counts()[k] for k in ("preprocess_forward", "preprocess_backward")}
     got = projection.preprocess(live, cam, scale_modifier, *args)
     s.sync()
     want = projection.plain_preprocess(live, cam, scale_modifier, *args)
@@ -1196,7 +1187,7 @@ def hold_preprocess(s: Smoke, scene, cam, what: str, offset=None, colors=None, c
     g_got = torch.autograd.grad([getattr(got, fields[i]) for i in outs], list(leaves.values()),
                                 [up[i] for i in outs], allow_unused=True)
     s.sync()
-    counted = {k: projection.LAUNCHES[k] - before[k] for k in before}
+    counted = {k: read_counts()[k] - before[k] for k in before}
     g_want = torch.autograd.grad([getattr(want, fields[i]) for i in outs], list(leaves.values()),
                                  [up[i] for i in outs], allow_unused=True)
     up = [u if i in outs else torch.zeros_like(u) for i, u in enumerate(up)]

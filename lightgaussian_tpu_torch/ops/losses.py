@@ -7,7 +7,8 @@ channel separable blur, mean over all pixels and channels.
 The blur runs as a CUDA kernel (`csrc/ssim_blur.cu`) in three forms:
 B4 `blur` over C planes, B3 `blur3` forming the x-side SSIM moments B(x),
 B(x^2), B(x y) from (x, y) in one pass, and B7 `blur5` forming all five
-moments. A wrapper given CPU tensors runs the plain version (`plain_blur`,
+moments, launched and counted by the rows of `utils/cuda_build.py`'s kernel
+table. A wrapper given CPU tensors runs the plain version (`plain_blur`,
 the JAX package's `_blur_jnp` in torch, with the same order of operations);
 given CUDA tensors it launches its kernel or raises. The window with zero
 "same" padding makes the blur self-adjoint, so every backward of the loss
@@ -24,21 +25,9 @@ import torch
 
 from lightgaussian_tpu_torch.utils import cuda_build
 
-SOURCE = cuda_build.CSRC / "ssim_blur.cu"
-
-# Launches of each kernel since the last reset (the plain versions do not count).
-LAUNCHES = {"blur": 0, "blur3": 0, "blur5": 0}
-_SYMBOLS = {"blur": "lg_ssim_blur", "blur3": "lg_ssim_blur3", "blur5": "lg_ssim_blur5"}
 _PLANES = {"blur3": 3, "blur5": 5}
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_FLOATS = ctypes.POINTER(ctypes.c_float)
 WINDOW = 11  # taps of the SSIM window, the width the kernels are compiled for
 SIGMA = 1.5
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -113,14 +102,6 @@ def plain_blur5(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return _interleave(list(planes))
 
 
-def _library() -> ctypes.CDLL:
-    return cuda_build.load(SOURCE, {
-        "lg_ssim_blur": [_P, _P, _I, _I, _I, _FLOATS, _I, _P],
-        "lg_ssim_blur3": [_P, _P, _P, _I, _I, _I, _FLOATS, _I, _P],
-        "lg_ssim_blur5": [_P, _P, _P, _I, _I, _I, _FLOATS, _I, _P],
-    })
-
-
 def _check(name: str, *xs: torch.Tensor) -> None:
     for x in xs:
         if x.dtype != torch.float32 or x.dim() != 3:
@@ -129,29 +110,17 @@ def _check(name: str, *xs: torch.Tensor) -> None:
             raise ValueError(f"{name}: inputs differ in shape or device")
 
 
-def _launch(name: str, *xs: torch.Tensor) -> torch.Tensor:
+def _dispatch(name: str, plain, *xs: torch.Tensor) -> torch.Tensor:
+    _check(name, *xs)
+    if not cuda_build.on_card(xs[0], name):
+        return plain(*xs)
     xs = tuple(x.contiguous() for x in xs)
     c, h, w = xs[0].shape
     out = torch.empty((c * _PLANES.get(name, 1), h, w), dtype=torch.float32, device=xs[0].device)
     if out.numel() == 0:
         return out
-    fn = getattr(_library(), _SYMBOLS[name])
-    with torch.cuda.device(out.device):
-        err = fn(*(x.data_ptr() for x in xs), out.data_ptr(), c, h, w, _C_TAPS, WINDOW,
-                 cuda_build.stream_of(out))
-    cuda_build.check(err, _SYMBOLS[name])
-    LAUNCHES[name] += 1
+    cuda_build.KERNELS[f"lg_ssim_{name}"](out, *(x.data_ptr() for x in xs), out.data_ptr(), c, h, w, _C_TAPS, WINDOW)
     return out
-
-
-def _dispatch(name: str, plain, *xs: torch.Tensor) -> torch.Tensor:
-    _check(name, *xs)
-    dev = xs[0].device
-    if dev.type == "cpu":
-        return plain(*xs)
-    if dev.type != "cuda":
-        raise ValueError(f"the blur kernels run on CUDA or, as plain torch, on the CPU; got {dev}")
-    return _launch(name, *xs)
 
 
 def blur(x: torch.Tensor) -> torch.Tensor:

@@ -21,14 +21,13 @@ The key is held in int64; the depth's float32 bit pattern is read with
 `view(torch.int32)` (depths of binned splats are positive and finite).
 
 The tile cover, piece (a), is one CUDA kernel on CUDA tensors
-(`csrc/bin_cover.cu`, `lg_bin_cover`, built by `utils/cuda_build.py` and
-counted in `LAUNCHES`); on CPU tensors `plain_cover` runs it as the torch
+(`csrc/bin_cover.cu`, `lg_bin_cover`, a row of `utils/cuda_build.py`'s
+kernel table); on CPU tensors `plain_cover` runs it as the torch
 chain of `tile_rect` and `_exact_tile_mask`, whose outputs the kernel equals
 bit for bit on the card. The other pieces are torch ops on either device.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 from typing import NamedTuple
 
@@ -63,24 +62,14 @@ MAX_MASK_TILES = 32
 # intersection test, so it stays conservative under f32 rounding.
 _MASK_MARGIN_PX = 0.25
 
-COVER_SOURCE = cuda_build.CSRC / "bin_cover.cu"
-
-# Launches of the cover kernel since the last reset (the plain version does not count).
-LAUNCHES = {"bin_cover": 0}
 # Instances of the binnings since the last reset: live (before any cut), cut
 # (past the capacity, dropped) and those of the >32-tile rect fallback.
 INSTANCES = {"live": 0, "cut": 0, "fallback": 0}
-_COVER_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
-def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, INSTANCES):
-        for k in counts:
-            counts[k] = 0
-
-
-def _library() -> ctypes.CDLL:
-    return cuda_build.load(COVER_SOURCE, {"lg_bin_cover": _COVER_ARGS})
+def reset_instances() -> None:
+    for k in INSTANCES:
+        INSTANCES[k] = 0
 
 
 class TileGrid(NamedTuple):
@@ -302,8 +291,6 @@ def _check_cover_inputs(splats: Splats) -> None:
             raise ValueError(f"{name} on {t.device}, mean2d on {splats.mean2d.device}")
         if t.dim() == 2 and t.stride(1) != 1 and n > 0:
             raise ValueError(f"{name} must have unit stride along its last dimension, got {t.stride()}")
-    if splats.mean2d.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"the tile cover runs on CUDA or, as plain torch, on the CPU; got {splats.mean2d.device}")
 
 
 def _cover(splats: Splats, grid: TileGrid) -> TileCover:
@@ -311,19 +298,15 @@ def _cover(splats: Splats, grid: TileGrid) -> TileCover:
     on CUDA tensors, `plain_cover` on CPU tensors. The kernel's rows of the
     rect (lo_x, lo_y, hi_x) are read only where the count is positive."""
     _check_cover_inputs(splats)
-    if splats.mean2d.device.type == "cpu":
+    if not cuda_build.on_card(splats.mean2d, "the tile cover"):
         return plain_cover(splats, grid)
     n = splats.mean2d.shape[0]
     out = torch.empty((5, n), dtype=torch.int64, device=splats.mean2d.device)
     if n > 0:
-        fn = _library().lg_bin_cover
-        with torch.cuda.device(out.device):
-            err = fn(splats.mean2d.data_ptr(), splats.conic.data_ptr(), splats.opacity.data_ptr(),
-                     splats.radius.data_ptr(), *(row.data_ptr() for row in out), n, splats.mean2d.stride(0),
-                     splats.conic.stride(0), splats.opacity.stride(0), splats.radius.stride(0), grid.tiles_x,
-                     grid.tiles_y, cuda_build.stream_of(out))
-        cuda_build.check(err, "lg_bin_cover")
-        LAUNCHES["bin_cover"] += 1
+        cuda_build.KERNELS["lg_bin_cover"](
+            out, splats.mean2d.data_ptr(), splats.conic.data_ptr(), splats.opacity.data_ptr(),
+            splats.radius.data_ptr(), *(row.data_ptr() for row in out), n, splats.mean2d.stride(0),
+            splats.conic.stride(0), splats.opacity.stride(0), splats.radius.stride(0), grid.tiles_x, grid.tiles_y)
     return TileCover(*out)
 
 

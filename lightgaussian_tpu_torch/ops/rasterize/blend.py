@@ -1,5 +1,5 @@
 """Per-tile front-to-back alpha blend, its backward and its counting form:
-the CUDA kernels, their plain versions, and their launch counters.
+the wrappers of the CUDA kernels, and their plain versions.
 
 Port of `blend_forward`, `blend_forward_fast`, `blend_backward`,
 `blend_forward_counting` and `unchunk_transpose` of
@@ -8,7 +8,8 @@ Port of `blend_forward`, `blend_forward_fast`, `blend_backward`,
 template), `csrc/blend_backward.cu` and `csrc/unchunk_transpose.cu`; those
 files say what bounds them and how they are laid out (`csrc/blend_tile.cuh`
 holds what the forward and the backward share). They are built with `nvcc` for
-sm_90a at first use (`utils/cuda_build.py`) and bound with `ctypes`.
+sm_90a at first use, bound with `ctypes`, launched and counted by the rows
+of `utils/cuda_build.py`'s kernel table.
 
 The blend kernels skip, warp by warp, the instances whose
 alpha >= 1/255 level set cannot reach the warp's pixels, and spare the pairs
@@ -41,8 +42,6 @@ blend's per-Gaussian importance float32 [N] and hit count int32 [N].
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from lightgaussian_tpu_torch.ops.rasterize.binning import (
@@ -64,10 +63,6 @@ from lightgaussian_tpu_torch.utils import cuda_build
 PIX = TILE_SIZE * TILE_SIZE
 BATCH = 128  # instances per chunk, in the kernels and in their plain versions
 
-FORWARD_SOURCE = cuda_build.CSRC / "blend_forward.cu"
-BACKWARD_SOURCE = cuda_build.CSRC / "blend_backward.cu"
-UNCHUNK_SOURCE = cuda_build.CSRC / "unchunk_transpose.cu"
-
 # Tiles the plain versions blend at once: about _TILE_GROUP * BATCH * PIX
 # floats per intermediate.
 _TILE_GROUP = 256
@@ -78,44 +73,6 @@ _TILE_GROUP = 256
 # 1/255; eligible and applied; eligible and ending the pixel's blend;
 # eligible past that end (only the render-only kernel's naive T walks those).
 WORK_KINDS = ("culled", "faint", "applied", "stopping", "past_stop")
-
-# Launches of each kernel since the last reset (the plain versions do not count).
-LAUNCHES = {"blend_forward": 0, "blend_forward_fast": 0, "blend_backward": 0, "blend_count": 0,
-            "unchunk_transpose": 0}
-_SYMBOLS = {
-    "blend_forward": "lg_blend_forward",
-    "blend_forward_fast": "lg_blend_forward_fast",
-    "blend_backward": "lg_blend_backward",
-    "blend_count": "lg_blend_count",
-    "unchunk_transpose": "lg_unchunk_transpose",
-}
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_FORWARD_ARGS = [_P] * 5 + [_I] * 4 + [_P]
-_BACKWARD_ARGS = [_P] * 7 + [_I] * 4 + [_P]
-_COUNT_ARGS = [_P] * 8 + [_I] * 4 + [_P]
-_UNCHUNK_ARGS = [_P] * 2 + [_I] * 2 + [_P]
-_INSTANCE_CULL_ARGS = [_P] * 4 + [_I] * 3 + [_P]
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _forward_library() -> ctypes.CDLL:
-    return cuda_build.load(FORWARD_SOURCE, {
-        "lg_blend_forward": _FORWARD_ARGS, "lg_blend_forward_fast": _FORWARD_ARGS,
-        "lg_blend_count": _COUNT_ARGS, "lg_instance_cull": _INSTANCE_CULL_ARGS,
-    })
-
-
-def _backward_library() -> ctypes.CDLL:
-    return cuda_build.load(BACKWARD_SOURCE, {"lg_blend_backward": _BACKWARD_ARGS})
-
-
-def _unchunk_library() -> ctypes.CDLL:
-    return cuda_build.load(UNCHUNK_SOURCE, {"lg_unchunk_transpose": _UNCHUNK_ARGS})
-
 
 def _check_inputs(tile_starts: torch.Tensor, inst: torch.Tensor, grid: TileGrid) -> None:
     if tile_starts.dtype != torch.int32 or tuple(tile_starts.shape) != (grid.num_tiles + 1,):
@@ -137,31 +94,20 @@ def _order_scratch(grid: TileGrid, device: torch.device) -> torch.Tensor:
     return torch.empty(grid.num_tiles, dtype=torch.int32, device=device)
 
 
-def _launch(name: str, tile_starts: torch.Tensor, inst: torch.Tensor, grid: TileGrid):
-    dev = inst.device
-    t = grid.num_tiles
-    order = _order_scratch(grid, dev)
-    rgb = torch.empty((t, 3, PIX), dtype=torch.float32, device=dev)
-    t_out = torch.empty((t, 1, PIX), dtype=torch.float32, device=dev)
-    fn = getattr(_forward_library(), _SYMBOLS[name])
-    with torch.cuda.device(dev):
-        err = fn(
-            tile_starts.data_ptr(), order.data_ptr(), inst.data_ptr(), rgb.data_ptr(), t_out.data_ptr(),
-            t, grid.tiles_x, grid.width, grid.height, cuda_build.stream_of(inst),
-        )
-    cuda_build.check(err, _SYMBOLS[name])
-    LAUNCHES[name] += 1
-    return rgb, t_out
-
-
 def _dispatch(name: str, exact: bool, tile_starts, inst, grid):
     _check_inputs(tile_starts, inst, grid)
-    if inst.device.type == "cpu":
+    if not cuda_build.on_card(inst, name):
         rgb, t, _ = plain_blend(tile_starts, inst, grid, exact=exact)
         return rgb, t
-    if inst.device.type != "cuda":
-        raise ValueError(f"blend kernels run on CUDA or, as plain torch, on the CPU; got {inst.device}")
-    return _launch(name, tile_starts, inst, grid)
+    dev = inst.device
+    order = _order_scratch(grid, dev)
+    rgb = torch.empty((grid.num_tiles, 3, PIX), dtype=torch.float32, device=dev)
+    t_out = torch.empty((grid.num_tiles, 1, PIX), dtype=torch.float32, device=dev)
+    cuda_build.KERNELS[f"lg_{name}"](
+        inst, tile_starts.data_ptr(), order.data_ptr(), inst.data_ptr(), rgb.data_ptr(), t_out.data_ptr(),
+        grid.num_tiles, grid.tiles_x, grid.width, grid.height,
+    )
+    return rgb, t_out
 
 
 def blend_forward(tile_starts: torch.Tensor, inst: torch.Tensor, grid: TileGrid):
@@ -206,22 +152,15 @@ def blend_backward(
     instance -> Gaussian map (every entry below `num_gaussians`). Gaussians
     that no tile holds get exact zeros."""
     _check_backward_inputs(tile_starts, inst, gid_sorted, tile_g, tile_r, grid)
-    if inst.device.type == "cpu":
+    if not cuda_build.on_card(inst, "blend_backward"):
         per_inst, _ = plain_blend_backward(tile_starts, inst, tile_g, tile_r, grid)
         return reduce_per_gaussian(per_inst, gid_sorted, num_gaussians)
-    if inst.device.type != "cuda":
-        raise ValueError(f"blend kernels run on CUDA or, as plain torch, on the CPU; got {inst.device}")
     grads = torch.zeros((num_gaussians, FEAT_WIDTH), dtype=torch.float32, device=inst.device)
     order = _order_scratch(grid, inst.device)
-    fn = _backward_library().lg_blend_backward
-    with torch.cuda.device(inst.device):
-        err = fn(
-            tile_starts.data_ptr(), order.data_ptr(), inst.data_ptr(), gid_sorted.data_ptr(), tile_g.data_ptr(),
-            tile_r.data_ptr(), grads.data_ptr(), grid.num_tiles, grid.tiles_x, grid.width,
-            grid.height, cuda_build.stream_of(inst),
-        )
-    cuda_build.check(err, _SYMBOLS["blend_backward"])
-    LAUNCHES["blend_backward"] += 1
+    cuda_build.KERNELS["lg_blend_backward"](
+        inst, tile_starts.data_ptr(), order.data_ptr(), inst.data_ptr(), gid_sorted.data_ptr(), tile_g.data_ptr(),
+        tile_r.data_ptr(), grads.data_ptr(), grid.num_tiles, grid.tiles_x, grid.width, grid.height,
+    )
     return grads
 
 
@@ -252,11 +191,9 @@ def blend_forward_counting(
     entry below `num_gaussians`). Gaussians that no tile holds get exact
     zeros. No backward."""
     _check_counting_inputs(tile_starts, inst, gid_sorted, grid, num_gaussians)
-    if inst.device.type == "cpu":
+    if not cuda_build.on_card(inst, "blend_forward_counting"):
         rgb, t, imp, cnt, _ = plain_blend_counting(tile_starts, inst, gid_sorted, grid, num_gaussians)
         return rgb, t, imp, cnt
-    if inst.device.type != "cuda":
-        raise ValueError(f"blend kernels run on CUDA or, as plain torch, on the CPU; got {inst.device}")
     dev = inst.device
     t = grid.num_tiles
     rgb = torch.empty((t, 3, PIX), dtype=torch.float32, device=dev)
@@ -264,15 +201,10 @@ def blend_forward_counting(
     imp = torch.zeros(num_gaussians, dtype=torch.float32, device=dev)
     cnt = torch.zeros(num_gaussians, dtype=torch.int32, device=dev)
     order = _order_scratch(grid, dev)
-    fn = _forward_library().lg_blend_count
-    with torch.cuda.device(dev):
-        err = fn(
-            tile_starts.data_ptr(), order.data_ptr(), inst.data_ptr(), gid_sorted.data_ptr(), rgb.data_ptr(),
-            t_out.data_ptr(), imp.data_ptr(), cnt.data_ptr(), t, grid.tiles_x, grid.width,
-            grid.height, cuda_build.stream_of(inst),
-        )
-    cuda_build.check(err, _SYMBOLS["blend_count"])
-    LAUNCHES["blend_count"] += 1
+    cuda_build.KERNELS["lg_blend_count"](
+        inst, tile_starts.data_ptr(), order.data_ptr(), inst.data_ptr(), gid_sorted.data_ptr(), rgb.data_ptr(),
+        t_out.data_ptr(), imp.data_ptr(), cnt.data_ptr(), t, grid.tiles_x, grid.width, grid.height,
+    )
     return rgb, t_out, imp, cnt
 
 
@@ -290,21 +222,15 @@ def unchunk_transpose(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x must be float32 [NC, F, {BATCH}], got {x.dtype} {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    if x.device.type == "cpu":
+    if not cuda_build.on_card(x, "unchunk_transpose"):
         return plain_unchunk_transpose(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"unchunk_transpose runs on CUDA or, as plain torch, on the CPU; got {x.device}")
     nc, f, _ = x.shape
     if f > _UNCHUNK_MAX_FEATURES:
         raise ValueError(f"unchunk_transpose takes at most {_UNCHUNK_MAX_FEATURES} features, got {f}")
     out = torch.empty((nc * BATCH, f), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    fn = _unchunk_library().lg_unchunk_transpose
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), out.data_ptr(), nc, f, cuda_build.stream_of(x))
-    cuda_build.check(err, _SYMBOLS["unchunk_transpose"])
-    LAUNCHES["unchunk_transpose"] += 1
+    cuda_build.KERNELS["lg_unchunk_transpose"](x, x.data_ptr(), out.data_ptr(), nc, f)
     return out
 
 
@@ -408,20 +334,15 @@ def instance_cull(tile_starts: torch.Tensor, inst: torch.Tensor, grid: TileGrid)
     32-bit word each) and its level (float32 [M]). On the card this runs
     `cull_cells` and `cull_level` of csrc/blend_tile.cuh themselves, so that
     they can be held against their plain twins; no product path calls it and
-    it counts no launch."""
+    no launch counter reads it."""
     _check_inputs(tile_starts, inst, grid)
-    if inst.device.type == "cpu":
+    if not cuda_build.on_card(inst, "instance_cull"):
         return plain_instance_cull(tile_starts, inst, grid)
-    if inst.device.type != "cuda":
-        raise ValueError(f"blend kernels run on CUDA or, as plain torch, on the CPU; got {inst.device}")
     m = inst.shape[0]
     cells = torch.empty(m, dtype=torch.int32, device=inst.device)
     level = torch.empty(m, dtype=torch.float32, device=inst.device)
-    fn = _forward_library().lg_instance_cull
-    with torch.cuda.device(inst.device):
-        err = fn(tile_starts.data_ptr(), inst.data_ptr(), cells.data_ptr(), level.data_ptr(), m,
-                 grid.num_tiles, grid.tiles_x, cuda_build.stream_of(inst))
-    cuda_build.check(err, "lg_instance_cull")
+    cuda_build.KERNELS["lg_instance_cull"](inst, tile_starts.data_ptr(), inst.data_ptr(), cells.data_ptr(),
+                                           level.data_ptr(), m, grid.num_tiles, grid.tiles_x)
     return cells.to(torch.int64) & 0xFFFFFFFF, level
 
 

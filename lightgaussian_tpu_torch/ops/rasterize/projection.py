@@ -1,8 +1,8 @@
 """Per-Gaussian preprocess: frustum cull, EWA projection, conic, radius, SH color.
 
 Port of `lightgaussian_tpu/ops/rasterize/projection.py`. On CUDA tensors the
-preprocess is two hand-written kernels (`csrc/preprocess.cu`, built by
-`utils/cuda_build.py`, joined by `_PreprocessFn` and counted in `LAUNCHES`):
+preprocess is two hand-written kernels (`csrc/preprocess.cu`, rows of
+`utils/cuda_build.py`'s kernel table, joined by `_PreprocessFn`):
 the forward reads the raw parameters and the camera from device memory and
 writes every output of the chain in one pass, equal to it bit for bit on the
 card; the backward recomputes the forward in registers and writes the
@@ -16,7 +16,6 @@ it).
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 from typing import Optional
 
@@ -33,12 +32,8 @@ ALPHA_EPS = 1.0 / 255.0  # min alpha to blend
 T_EPS = 1e-4  # transmittance early-stop threshold
 MAX_ALPHA = 0.99
 
-SOURCE = cuda_build.CSRC / "preprocess.cu"
 # sh_rest rows the kernels take: those of SH degree 4.
 MAX_SH_REST = sh_ops.num_sh_coeffs(sh_ops.MAX_SH_DEGREE) - 1
-
-# Launches of the kernels since the last reset (the plain chain does not count).
-LAUNCHES = {"preprocess_forward": 0, "preprocess_backward": 0}
 
 # The per-Gaussian inputs in the kernels' order, and the outputs of the backward.
 _INPUTS = ("means", "log_scales", "quats", "opacity_logits", "sh_dc", "sh_rest", "alive", "mean2d_offset",
@@ -46,24 +41,6 @@ _INPUTS = ("means", "log_scales", "quats", "opacity_logits", "sh_dc", "sh_rest",
 _CAMERA = ("world_view", "full_proj", "camera_center", "tan_fovx", "tan_fovy")
 _GRADS = ("means", "log_scales", "quats", "opacity_logits", "sh_dc", "sh_rest", "mean2d_offset", "colors_precomp",
           "cov3d_precomp")
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# inputs, camera, 6 outputs; a row stride per input; n, K, degree, width, height; scale_modifier; stream
-_FORWARD_ARGS = [_P] * 21 + [_I] * 15 + [ctypes.c_float, _P]
-# inputs, camera, 4 upstream gradients, 9 gradients; the strides of inputs and upstream; n, K, degree,
-# width, height; scale_modifier; stream
-_BACKWARD_ARGS = [_P] * 28 + [_I] * 19 + [ctypes.c_float, _P]
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _library() -> ctypes.CDLL:
-    return cuda_build.load(SOURCE, {"lg_preprocess_forward": _FORWARD_ARGS,
-                                    "lg_preprocess_backward": _BACKWARD_ARGS})
-
-
 @dataclasses.dataclass(frozen=True)
 class Splats:
     """Screen-space Gaussians ready for blending."""
@@ -81,11 +58,6 @@ def view_colors(scene: GaussianScene, camera: Camera) -> torch.Tensor:
     dirs = scene.means - camera.camera_center
     dirs = dirs / (torch.sqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True)) + 1e-12)
     return sh_ops.sh_to_rgb(scene.active_sh_degree, scene.sh_coeffs, dirs)
-
-
-def _takes_kernels(dev: torch.device) -> bool:
-    """Whether the preprocess of tensors on `dev` runs the kernels."""
-    return dev.type == "cuda"
 
 
 def _check_inputs(scene: GaussianScene, camera: Camera, mean2d_offset, colors_precomp, cov3d_precomp) -> None:
@@ -158,10 +130,7 @@ def preprocess(
     kernels compute both in their one launch, so on CUDA tensors there are
     no such spans and "projection" holds the launch.
     """
-    dev = scene.means.device
-    if not _takes_kernels(dev):
-        if dev.type != "cpu":
-            raise ValueError(f"the preprocess runs on CUDA or, as plain torch, on the CPU; got {dev}")
+    if not cuda_build.on_card(scene.means, "preprocess"):
         return plain_preprocess(scene, camera, scale_modifier, mean2d_offset, colors_precomp, cov3d_precomp)
     _check_inputs(scene, camera, mean2d_offset, colors_precomp, cov3d_precomp)
     outs = _PreprocessFn.apply(
@@ -176,14 +145,6 @@ def _row_stride(t: Optional[torch.Tensor]) -> int:
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
-
-
-def _launch(symbol: str, like: torch.Tensor, *args) -> None:
-    """Call the entry point `symbol` on `like`'s device and current stream;
-    raise if the launch failed."""
-    with torch.cuda.device(like.device):
-        err = getattr(_library(), symbol)(*args, cuda_build.stream_of(like))
-    cuda_build.check(err, symbol)
 
 
 class _PreprocessFn(torch.autograd.Function):
@@ -202,10 +163,10 @@ class _PreprocessFn(torch.autograd.Function):
                 torch.empty((n,), **f32), torch.empty((n,), **f32),
                 torch.empty((n,), dtype=torch.int32, device=means.device))
         if n > 0:
-            _launch("lg_preprocess_forward", means, *(_ptr(t) for t in inputs),
-                    *(getattr(camera, c).data_ptr() for c in _CAMERA), *(t.data_ptr() for t in outs),
-                    *(_row_stride(t) for t in inputs), n, k, degree, camera.width, camera.height, scale_modifier)
-            LAUNCHES["preprocess_forward"] += 1
+            cuda_build.KERNELS["lg_preprocess_forward"](
+                means, *(_ptr(t) for t in inputs), *(getattr(camera, c).data_ptr() for c in _CAMERA),
+                *(t.data_ptr() for t in outs), *(_row_stride(t) for t in inputs), n, k, degree, camera.width,
+                camera.height, scale_modifier)
         ctx.mark_non_differentiable(outs[4], outs[5])
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(*inputs)
@@ -228,12 +189,11 @@ class _PreprocessFn(torch.autograd.Function):
                     for g in (g_mean2d, g_conic, g_color, g_opacity)]
         if grads and n > 0 and any(g is not None for g in upstream):
             camera = ctx.camera
-            _launch("lg_preprocess_backward", means, *(_ptr(t) for t in inputs),
-                    *(getattr(camera, c).data_ptr() for c in _CAMERA), *(_ptr(g) for g in upstream),
-                    *(_ptr(grads.get(name)) for name in _GRADS), *(_row_stride(t) for t in inputs),
-                    *(_row_stride(g) for g in upstream), n, k, ctx.degree, camera.width, camera.height,
-                    ctx.scale_modifier)
-            LAUNCHES["preprocess_backward"] += 1
+            cuda_build.KERNELS["lg_preprocess_backward"](
+                means, *(_ptr(t) for t in inputs), *(getattr(camera, c).data_ptr() for c in _CAMERA),
+                *(_ptr(g) for g in upstream), *(_ptr(grads.get(name)) for name in _GRADS),
+                *(_row_stride(t) for t in inputs), *(_row_stride(g) for g in upstream), n, k, ctx.degree,
+                camera.width, camera.height, ctx.scale_modifier)
         else:
             for g in grads.values():
                 g.zero_()

@@ -1,6 +1,7 @@
-"""What the end-to-end scripts share: the card's name, per-call timing, the
-kernels' launch counts, a log of each stage's wall time, iterations and
-launches, and a read-through of a `torch.profiler` Chrome trace.
+"""What the end-to-end scripts share: the card's name, per-call timing, a log
+of each stage's wall time, iterations and kernel launches (the counters of
+`utils/cuda_build.py`'s kernel table), and a read-through of a
+`torch.profiler` Chrome trace.
 
 Times on a card come from CUDA events; on the CPU (`--device cpu`, for tests
 at small sizes) from the host clock, and every report says which: a CPU
@@ -19,9 +20,7 @@ from pathlib import Path
 
 import torch
 
-from lightgaussian_tpu_torch.ops import losses
-from lightgaussian_tpu_torch.ops.rasterize import binning, blend, projection
-from lightgaussian_tpu_torch.utils import issue_probe
+from lightgaussian_tpu_torch.utils import cuda_build
 
 
 def default_out_root() -> Path:
@@ -86,12 +85,6 @@ def host_ms_per_call(fn, device: torch.device, reps: int = 20, warmup: int = 3) 
     return statistics.median(times)
 
 
-def launch_counts() -> dict:
-    """Launches of every hand-written kernel so far (a wrapper counts only
-    where it launches its kernel: on the CPU all stay 0)."""
-    return {**blend.LAUNCHES, **losses.LAUNCHES, **issue_probe.LAUNCHES, **binning.LAUNCHES, **projection.LAUNCHES}
-
-
 class StageLog:
     """Each stage's wall time (synchronised), iterations and kernel launches."""
 
@@ -102,12 +95,12 @@ class StageLog:
     @contextlib.contextmanager
     def stage(self, name: str, iterations: int = 0):
         sync(self.device)
-        before = launch_counts()
+        before = cuda_build.launch_counts()
         t0 = time.perf_counter()
         yield
         sync(self.device)
         wall = time.perf_counter() - t0
-        after = launch_counts()
+        after = cuda_build.launch_counts()
         self.rows.append({
             "stage": name,
             "wall_s": wall,
@@ -125,24 +118,6 @@ class StageLog:
         return lines
 
 
-# The device name of each hand-written kernel's main launch (demangled as
-# torch.profiler writes it, or mangled), by its launch counter. A wrapper's
-# other device work (zeroing an output, the tile-ordering kernel) is not its
-# launch.
-HAND_WRITTEN = {
-    "blend_forward": r"blend_tile_kernel<true, false>|blend_tile_kernelILb1ELb0E",
-    "blend_forward_fast": r"blend_tile_kernel<false, false>|blend_tile_kernelILb0ELb0E",
-    "blend_count": r"blend_tile_kernel<true, true>|blend_tile_kernelILb1ELb1E",
-    "blend_backward": r"blend_backward_kernel",
-    "blur": r"blur_rows_kernel",
-    "blur3": r"moment_rows_kernel<(true|false), 3>|moment_rows_kernelILb[01]ELi3E",
-    "blur5": r"moment_rows_kernel<(true|false), 5>|moment_rows_kernelILb[01]ELi5E",
-    "unchunk_transpose": r"unchunk_transpose_kernel",
-    "issue_probe": r"probe_kernel",
-    "bin_cover": r"bin_cover_kernel",
-    "preprocess_forward": r"preprocess_forward_kernel",
-    "preprocess_backward": r"preprocess_backward_kernel",
-}
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _HOST_CATS = ("cpu_op", "cuda_runtime")
 TOP = 10
@@ -157,7 +132,8 @@ def trace_summary(trace_json) -> dict:
       streams (the idle share of a step divides it by a step run without the
       profiler, which slows the host: `profile_step` does);
     - `launches`: kernel events by name, and `hand_written` those of the
-      twelve hand-written kernels by launch counter (`HAND_WRITTEN`);
+      twelve counted kernels of `cuda_build.KERNELS` by launch counter,
+      matched by each row's `device_name`;
     - `top_ops`: the TOP device ops by total time, (name, total, count);
     - `gaps`: the TOP longest idle stretches inside the window, (start,
       length, the host op running when it began: the deepest `cpu_op` or
@@ -201,8 +177,8 @@ def trace_summary(trace_json) -> dict:
         "window": window,
         "busy": busy,
         "launches": launches,
-        "hand_written": {k: sum(c for name, c in launches.items() if re.search(pat, name))
-                         for k, pat in HAND_WRITTEN.items()},
+        "hand_written": {k.name: sum(c for name, c in launches.items() if re.search(k.device_name, name))
+                         for k in cuda_build.KERNELS.values() if k.name},
         "top_ops": [(name, totals[name], counts[name]) for name in top],
         "gaps": [(start, length, host_op_at(start)) for length, start in gaps],
     }

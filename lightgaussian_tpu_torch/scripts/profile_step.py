@@ -41,6 +41,7 @@ from lightgaussian_tpu_torch.ops.rasterize.binning import bin_splats, make_grid
 from lightgaussian_tpu_torch.ops.rasterize.projection import preprocess
 from lightgaussian_tpu_torch.ops.rasterize.tiled import blend_tiled
 from lightgaussian_tpu_torch.scripts import bench, harness, profile_bwd
+from lightgaussian_tpu_torch.utils import cuda_build
 from lightgaussian_tpu_torch.utils.device import resolve_device
 
 REPS = 10
@@ -92,12 +93,12 @@ def trace_steps(dev: torch.device, steps: int, path: Path) -> dict:
     activities = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    before = harness.launch_counts()
+    before = cuda_build.launch_counts()
     with torch.profiler.profile(activities=activities) as prof:
         for _ in range(steps):
             step()
         harness.sync(dev)
-    after = harness.launch_counts()
+    after = cuda_build.launch_counts()
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
     return {k: v - before.get(k, 0) for k, v in after.items()}

@@ -3,7 +3,8 @@ port's kernels are made of.
 
 Port of the VPU probe of the JAX package's `scripts/roofline.py`
 (`_chain_kernel`, `vpu_chain`, `measure_vpu`). The kernel lives in
-`csrc/issue_probe.cu`, which says what each kind's step is. `run_chain`
+`csrc/issue_probe.cu`, which says what each kind's step is, and is launched
+and counted by its row of `utils/cuda_build.py`'s kernel table. `run_chain`
 carries a vector through `passes` dependent steps of one kind: on CUDA
 tensors with the kernel, on CPU tensors with `plain_chain`, the same
 recurrence in elementwise torch. `measure` times the kernel at two chain
@@ -16,14 +17,10 @@ that peak.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from lightgaussian_tpu_torch.utils import cuda_build
 from lightgaussian_tpu_torch.utils.device import resolve_device
-
-SOURCE = cuda_build.CSRC / "issue_probe.cu"
 
 KINDS = ("mul", "mul_add", "fma", "ex2", "rcp", "shfl_sum", "scan128")
 # What a pass issues per element on the unit the kind loads: (unit, instructions).
@@ -43,19 +40,6 @@ GRANULE = BLOCK * CHAINS  # a vector's length is a multiple of this
 BLOCKS_PER_SM = 16  # 64 warps an SM: every scheduler has sixteen to pick from
 PASSES = (1024, 4096)  # the two chain lengths `measure` times
 REPS = 5  # timed launches per length; the least counts
-
-# Launches of the kernel since the last reset (the plain version does not count).
-LAUNCHES = {"issue_probe": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _library() -> ctypes.CDLL:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return cuda_build.load(SOURCE, {"lg_issue_probe": [p, p, i, i, f, f, i, p]})
 
 
 def start_values(kind: str, n: int, device: str | torch.device = "cuda") -> torch.Tensor:
@@ -107,18 +91,11 @@ def run_chain(x: torch.Tensor, kind: str, passes: int) -> torch.Tensor:
         raise ValueError("x must be contiguous")
     if passes < 0:
         raise ValueError(f"passes must not be negative, got {passes}")
-    if x.device.type == "cpu":
+    if not cuda_build.on_card(x, "the probe"):
         return plain_chain(x, kind, passes)
-    if x.device.type != "cuda":
-        raise ValueError(f"the probe runs on CUDA or, as plain torch, on the CPU; got {x.device}")
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _library().lg_issue_probe(
-            x.data_ptr(), out.data_ptr(), KINDS.index(kind), passes, A, B,
-            x.numel() // GRANULE, cuda_build.stream_of(x),
-        )
-    cuda_build.check(err, "lg_issue_probe")
-    LAUNCHES["issue_probe"] += 1
+    cuda_build.KERNELS["lg_issue_probe"](x, x.data_ptr(), out.data_ptr(), KINDS.index(kind), passes, A, B,
+                                         x.numel() // GRANULE)
     return out
 
 

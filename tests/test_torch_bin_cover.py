@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from lightgaussian_tpu_torch.ops.rasterize import binning as tb
+from lightgaussian_tpu_torch.utils import cuda_build
 from lightgaussian_tpu_torch.utils import synthetic as tsyn
 
 torch.set_num_threads(1)
@@ -35,10 +36,10 @@ def _chain(splats, grid):
 @pytest.mark.parametrize("kind", tsyn.COVER_STRESS_KINDS)
 def test_cover_on_the_cpu_is_the_chain(kind):
     splats, grid = _stress(kind), tb.make_grid(W, H)
-    tb.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     got = tb._cover(splats, grid)
     want, _rect_count = _chain(splats, grid)
-    assert tb.LAUNCHES == {"bin_cover": 0}
+    assert cuda_build.launch_counts()["bin_cover"] == 0
     for field in tb.TileCover._fields:
         g, w = getattr(got, field), getattr(want, field)
         assert g.dtype == torch.int64 and g.shape == (N,), field
@@ -91,20 +92,20 @@ BAD = _bad_inputs()
 
 @pytest.mark.parametrize("case", sorted(BAD))
 def test_cover_refuses_bad_inputs_before_any_launch(case, monkeypatch):
-    def no_build():
+    def no_build(*_args):
         raise AssertionError("the cover kernel was built or launched")
 
-    monkeypatch.setattr(tb, "_library", no_build)
+    monkeypatch.setattr(cuda_build, "load", no_build)
     splats = tsyn.cover_stress_splats("radius0", 64, W, H, seed=3, device="cpu")
     bad = BAD[case]
     if bad == "meta":
         splats = tb.Splats(**{f.name: getattr(splats, f.name).to("meta") for f in dataclasses.fields(splats)})
     else:
         splats = dataclasses.replace(splats, **bad)
-    tb.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     with pytest.raises(ValueError):
         tb._cover(splats, tb.make_grid(W, H))
-    assert tb.LAUNCHES == {"bin_cover": 0}
+    assert cuda_build.launch_counts()["bin_cover"] == 0
 
 
 def test_cover_takes_strided_rows():

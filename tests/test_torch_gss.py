@@ -50,7 +50,7 @@ from lightgaussian_tpu_torch.ops.rasterize.projection import preprocess as tprep
 from lightgaussian_tpu_torch.train import gss as tgss
 from lightgaussian_tpu_torch.train import loop as tloop
 from lightgaussian_tpu_torch.train import state as tstate
-from lightgaussian_tpu_torch.utils import issue_probe
+from lightgaussian_tpu_torch.utils import cuda_build, issue_probe
 from lightgaussian_tpu_torch.utils import synthetic as tsyn
 
 torch.set_num_threads(1)
@@ -115,12 +115,12 @@ def test_counting_wrapper_on_cpu_uses_plain_version(case):
     grid = tb.make_grid(case.w, case.h)
     b = tb.bin_splats(tpreprocess(case.tscene, case.tcam), grid, MAX_INST)
     n = case.tscene.capacity
-    tblend.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     got = tblend.blend_forward_counting(b.tile_starts, b.inst, b.gid_sorted, grid, n)
     want = tblend.plain_blend_counting(b.tile_starts, b.inst, b.gid_sorted, grid, n)
     for g, w in zip(got, want[:4]):
         np.testing.assert_array_equal(_np(g), _np(w))
-    assert tblend.LAUNCHES["blend_count"] == 0  # no kernel ran
+    assert cuda_build.launch_counts()["blend_count"] == 0  # no kernel ran
     # the work is the exact blend's, and so are the image planes
     rgb, t, work = tblend.plain_blend(b.tile_starts, b.inst, grid, exact=True)
     np.testing.assert_array_equal(_np(want[4]), _np(work))
@@ -356,11 +356,11 @@ def test_from_point_cloud_and_compact_match_jax():
 def test_unchunk_transpose_plain_matches_jax(shape):
     x = np.random.default_rng(0).normal(size=shape).astype(np.float32)
     want = np.asarray(jpk.unchunk_transpose(jnp.asarray(x), interpret=True))
-    tblend.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     got = tblend.unchunk_transpose(torch.from_numpy(x))
     np.testing.assert_array_equal(_np(got), want)
     np.testing.assert_array_equal(_np(tblend.plain_unchunk_transpose(torch.from_numpy(x))), want)
-    assert got.shape == (shape[0] * 128, shape[1]) and tblend.LAUNCHES["unchunk_transpose"] == 0
+    assert got.shape == (shape[0] * 128, shape[1]) and cuda_build.launch_counts()["unchunk_transpose"] == 0
     with pytest.raises(ValueError, match="float32"):
         tblend.unchunk_transpose(torch.from_numpy(x).double())
     with pytest.raises(ValueError, match="float32"):
@@ -397,14 +397,14 @@ def _numpy_chain(x, kind, passes):
 @pytest.mark.parametrize("kind", issue_probe.KINDS)
 def test_probe_plain_recurrence_matches_numpy(kind):
     x = issue_probe.start_values(kind, 2 * issue_probe.GRANULE, device="cpu")
-    issue_probe.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     got = _np(issue_probe.run_chain(x, kind, 24))
     want = _numpy_chain(_np(x), kind, 24)
     # the exact kinds bit for bit; sums and products in another order within 1e-6
     tol = 0 if kind in ("mul", "mul_add", "fma", "rcp") else 1e-6
     np.testing.assert_allclose(got, want, rtol=tol, atol=0)
     assert np.isfinite(got).all() and got.min() > 0 and got.max() < 2 and not np.array_equal(got, _np(x))
-    assert issue_probe.LAUNCHES["issue_probe"] == 0
+    assert cuda_build.launch_counts()["issue_probe"] == 0
     np.testing.assert_array_equal(_np(issue_probe.run_chain(x, kind, 0)), _np(x))
 
 

@@ -16,10 +16,11 @@ the chain. Here:
   the 1.3 tan(fov) clamp, where autograd's masks decide (JAX splits a tie's
   gradient, so the JAX comparison leaves the stress set out);
 - `projection._PreprocessFn`, the kernels' autograd node, with the two
-  entry points replaced by fakes that rebuild every tensor from the
-  pointers, strides and sizes they are passed and run the plain versions:
-  so the argument lists, the nullable pointers, `needs_input_grad` and the
-  launch counters are exercised as on the card;
+  entry points' calls (`cuda_build.Kernel._launch`) replaced by fakes that
+  rebuild every tensor from the pointers, strides and sizes they are passed
+  and run the plain versions: so the argument lists, the nullable pointers,
+  `needs_input_grad` and the table's launch counters are exercised as on
+  the card;
 - the wrapper refusing, before anything is built or launched, what the
   kernels do not take.
 """
@@ -38,6 +39,7 @@ from lightgaussian_tpu.utils import synthetic as jsyn
 from lightgaussian_tpu_torch.models.camera import Camera
 from lightgaussian_tpu_torch.models.gaussians import GaussianScene
 from lightgaussian_tpu_torch.ops.rasterize import projection as tp
+from lightgaussian_tpu_torch.utils import cuda_build
 from lightgaussian_tpu_torch.utils import synthetic as tsyn
 
 torch.set_num_threads(1)
@@ -214,18 +216,20 @@ def _rebuild(ptrs, strides, n, k, degree, width, height):
 
 
 class FakeKernels:
-    """`projection._launch` with each entry point run by its plain version
-    on the tensors rebuilt from its arguments; records what it was given."""
+    """`cuda_build.Kernel._launch` with each entry point run by its plain
+    version on the tensors rebuilt from its arguments; records what it was
+    given and returns no error."""
 
     def __init__(self):
         self.calls = []
 
-    def __call__(self, symbol, like, *args):
-        self.calls.append((symbol, args))
-        getattr(self, symbol)(*args)
+    def __call__(self, kernel, like, args):
+        self.calls.append((kernel.symbol, args))
+        assert len(args) == len(kernel.argtypes) - 1  # all but the stream
+        getattr(self, kernel.symbol)(*args)
+        return 0
 
     def lg_preprocess_forward(self, *args):
-        assert len(args) == len(tp._FORWARD_ARGS) - 1  # all but the stream
         ptrs, ints, sm = args[:21], args[21:36], args[36]
         n, k, degree, width, height = ints[10:]
         scene, camera, offset, colors, cov3d = _rebuild(ptrs, ints[:10], n, k, degree, width, height)
@@ -235,7 +239,6 @@ class FakeKernels:
             _view(p, shape, dtype=torch.int32 if f == "radius" else torch.float32).copy_(getattr(s, f))
 
     def lg_preprocess_backward(self, *args):
-        assert len(args) == len(tp._BACKWARD_ARGS) - 1
         ptrs, ints, sm = args[:28], args[28:47], args[47]
         n, k, degree, width, height = ints[14:]
         scene, camera, offset, colors, cov3d = _rebuild(ptrs, ints[:10], n, k, degree, width, height)
@@ -252,9 +255,14 @@ class FakeKernels:
 @pytest.fixture
 def fakes(monkeypatch):
     fake = FakeKernels()
-    monkeypatch.setattr(tp, "_launch", fake)
-    tp.reset_launch_counts()
+    monkeypatch.setattr(cuda_build.Kernel, "_launch", lambda kernel, like, args: fake(kernel, like, args))
+    cuda_build.reset_launch_counts()
     return fake
+
+
+def _counts():
+    counts = cuda_build.launch_counts()
+    return {k: counts[k] for k in ("preprocess_forward", "preprocess_backward")}
 
 
 def _node(scene, camera, sm=1.0, offset=None, colors=None, cov3d=None):
@@ -312,7 +320,7 @@ def test_autograd_node_passes_what_the_kernels_take(name, fakes):
     for f in ("mean2d", "conic", "color", "opacity", "depth", "radius"):
         assert torch.equal(getattr(s, f), getattr(want_s, f)), f
     assert not s.depth.requires_grad and not s.radius.requires_grad
-    assert tp.LAUNCHES == {"preprocess_forward": 1, "preprocess_backward": 0}
+    assert _counts() == {"preprocess_forward": 1, "preprocess_backward": 0}
 
     # B2 hands the preprocess its gradients as column views of one [N, 9] array
     packed = torch.randn((scene.capacity, 9), generator=torch.Generator().manual_seed(5))
@@ -320,7 +328,7 @@ def test_autograd_node_passes_what_the_kernels_take(name, fakes):
     loss = _PackedBlend.apply(packed, *(getattr(s, f) for f in SPLAT_GRADS))
     leaves = {k: v for k, v in {**params, **extra}.items() if v.requires_grad}
     got = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)))
-    assert tp.LAUNCHES == {"preprocess_forward": 1, "preprocess_backward": 1}
+    assert _counts() == {"preprocess_forward": 1, "preprocess_backward": 1}
     symbol, args = fakes.calls[-1]
     assert symbol == "lg_preprocess_backward"
     asked = [p is not None for p in args[19:28]]
@@ -344,7 +352,7 @@ def test_autograd_node_forward_only_under_no_grad(fakes):
     with torch.no_grad():
         s = _node(scene, camera)
     assert not s.mean2d.requires_grad
-    assert tp.LAUNCHES == {"preprocess_forward": 1, "preprocess_backward": 0}
+    assert _counts() == {"preprocess_forward": 1, "preprocess_backward": 0}
     assert [c[0] for c in fakes.calls] == ["lg_preprocess_forward"]
 
 
@@ -367,7 +375,7 @@ def test_preprocess_on_the_cpu_is_the_chain(fakes):
     got, want = tp.preprocess(scene, camera, sm), tp.plain_preprocess(scene, camera, sm)
     for f in ("mean2d", "conic", "color", "opacity", "depth", "radius"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
-    assert tp.LAUNCHES == {"preprocess_forward": 0, "preprocess_backward": 0} and not fakes.calls
+    assert _counts() == {"preprocess_forward": 0, "preprocess_backward": 0} and not fakes.calls
 
 
 def _bad_inputs():
@@ -409,10 +417,11 @@ def test_preprocess_refuses_bad_inputs_before_any_launch(case, monkeypatch):
     def no_build(*_args):
         raise AssertionError("the preprocess kernels were built or launched")
 
-    monkeypatch.setattr(tp, "_library", no_build)
-    monkeypatch.setattr(tp, "_launch", no_build)
+    monkeypatch.setattr(cuda_build, "load", no_build)
+    monkeypatch.setattr(cuda_build.Kernel, "_launch", no_build)
     # CPU tensors stand for CUDA ones: the kernel route, and its checks, take them
-    monkeypatch.setattr(tp, "_takes_kernels", lambda dev: dev.type == "cpu")
+    on_card = cuda_build.on_card
+    monkeypatch.setattr(cuda_build, "on_card", lambda t, what: t.device.type == "cpu" or on_card(t, what))
     scene = tsyn.random_scene(n=64, seed=2, device="cpu")
     camera = tsyn.default_camera(width=W, height=H, device="cpu")
     kwargs = {}
@@ -424,10 +433,10 @@ def test_preprocess_refuses_bad_inputs_before_any_launch(case, monkeypatch):
         scene = dataclasses.replace(scene, **bad.get("scene", {}))
         camera = dataclasses.replace(camera, **bad.get("camera", {}))
         kwargs = {k: v for k, v in bad.items() if k not in ("scene", "camera")}
-    tp.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     with pytest.raises(ValueError):
         tp.preprocess(scene, camera, **kwargs)
-    assert tp.LAUNCHES == {"preprocess_forward": 0, "preprocess_backward": 0}
+    assert _counts() == {"preprocess_forward": 0, "preprocess_backward": 0}
 
 
 # layouts the kernels refuse and the chain takes: name -> (scene or camera, field, the field's tensor from its value)
@@ -456,4 +465,4 @@ def test_preprocess_on_the_cpu_takes_what_the_chain_takes(case, fakes):
     got, want = tp.preprocess(scene_odd, cam_odd), tp.plain_preprocess(scene_plain, cam_plain)
     for f in ("mean2d", "conic", "color", "opacity", "depth", "radius"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
-    assert tp.LAUNCHES == {"preprocess_forward": 0, "preprocess_backward": 0} and not fakes.calls
+    assert _counts() == {"preprocess_forward": 0, "preprocess_backward": 0} and not fakes.calls

@@ -102,7 +102,7 @@ def test_frames_past_the_old_ceiling_render_whole(monkeypatch, tmp_path, capsys)
         jb.instance_capacity(jb.snug_capacity(live), grid)
 
     # api.render with no cut
-    binning.reset_launch_counts()
+    binning.reset_instances()
     with torch.no_grad():
         out = render(scene, cam, bg, fast=True)
         whole = render(scene, cam, bg, fast=True, max_instances=live)
@@ -115,7 +115,7 @@ def test_frames_past_the_old_ceiling_render_whole(monkeypatch, tmp_path, capsys)
     assert grown >= live > old and grown == binning.snug_capacity(live)
     gt = torch.rand((3, cfg["height"], cfg["width"]), generator=torch.Generator().manual_seed(3))
     cam_gt = cam.with_gt(gt).with_gt_ssim_stats(losses.precompute_ssim_target_stats(gt))
-    binning.reset_launch_counts()
+    binning.reset_instances()
     _, metrics = make_train_step(OptimizationParams(), 1.0, grown)(init_train_state(scene), cam_gt, bg)
     assert metrics.num_instances == live and binning.INSTANCES == {
         "live": live, "cut": 0, "fallback": binning.INSTANCES["fallback"]}
@@ -147,7 +147,7 @@ def test_a_frame_past_the_ceiling_raises(monkeypatch):
 def test_binning_counters_equal_the_reference_cover(cut_share):
     cfg, p, scene = _surface()
     counts = {"live": 0, "cut": 0, "fallback": 0}
-    binning.reset_launch_counts()
+    binning.reset_instances()
     for angle in (0.0, 1.3):
         cam, view = _views(cfg, angle)
         grid = binning.make_grid(cam.width, cam.height)
