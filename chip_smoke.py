@@ -63,6 +63,12 @@ Phases, each of which exits non-zero on failure:
        1237x822, and on the whole set as column views of one array: count
        and mask equal on every Gaussian, lo_x, lo_y and hi_x where the
        count is positive;
+     - binning's instance emission (`lg_bin_emit`) against the plain
+       emission (`binning.plain_emit`, the torch chain `_fill_slots` +
+       `_depth_key` it replaces) on each kind of that stress set with no
+       cut, with a cut one slot into a Gaussian's instances, with every
+       Gaussian on the >32-tile fallback and with all depths equal: every
+       slot's 32-bit key and Gaussian equal, one launch of its row each;
      - the preprocess kernels (`lg_preprocess_forward`,
        `lg_preprocess_backward`) against the torch chain they replace
        (`projection.plain_preprocess` and its autograd) on the stress set
@@ -94,7 +100,14 @@ Phases, each of which exits non-zero on failure:
      assume. Last, the tile cover on a 3 M-Gaussian scene drawn like the
      benchmark's 3dgs-m360 at 1237x822 from two ring angles, equal to the
      chain as in phase 2, then timed (CUDA events over 20 launches) beside
-     its byte bound and the chain's time. And the preprocess kernels as in
+     its byte bound and the chain's time. The emission on that scene and on
+     the 4K cell's (6.1 M Gaussians drawn by `perfbench/surface.py` from
+     its configuration, 3840x2160, ring angle 0), uncut and cut inside a
+     Gaussian, equal to the plain emission as in phase 2, then timed beside
+     its byte bound and the plain emission's time, the 32-bit sort beside
+     the int64 one it replaced, and `bin_splats` run under
+     `torch.cuda.set_sync_debug_mode("warn")`: one synchronise (the host
+     read of the total), else the run fails. And the preprocess kernels as in
      phase 2 on a 1.02 M-Gaussian SH-2 scene (lg-m360's size) and that 3 M
      SH-3 one from two ring angles, then timed at 3 M beside their byte
      bounds, the chain's forward and forward + backward, and the twin.
@@ -221,11 +234,12 @@ Phases, each of which exits non-zero on failure:
      at `--batch 2 --repeats 3 --iters 3` (B1-B3 26, B4 27), its JSON line
      printed and its value held to the pixels over the median step; the
      bench step's gradients against the same loss through the plain
-     versions of B1-B4, the cover and the preprocess on the card, by B2's
-     rules (B2_TOL,
-     B2_MEDIAN_REL_TOL); `profile_binning` (the pieces of `bin_splats`
-     composed in order give its outputs bit for bit, and their times sum to
-     0.7-1.5x the whole); `profile_binning_infer` at both points (the same
+     versions of B1-B4, the cover, the emission and the preprocess on the
+     card, by B2's rules (B2_TOL,
+     B2_MEDIAN_REL_TOL); `profile_binning` at the dense cell's size (3 M
+     Gaussians at 1237x822, uncut: the pieces of `bin_splats` composed in
+     order give its outputs bit for bit, and their times sum to 0.7-1.5x
+     the whole); `profile_binning_infer` at both points (the same
      bit-equality; at `--large` its fresh frame within 1.5x of phase 3's
      serving frame, the two timed in turns); `profile_bwd` (its B2 seed bit-equal to what the
      autograd blend hands B2 for the same cotangent); and last
@@ -247,17 +261,18 @@ Phases, each of which exits non-zero on failure:
      `api.render(fast=True)` with no cut reports the same live count, none
      cut, and B6's image within KERNEL_TOL.
 Launches are read from the kernel table's counters, one for each of the
-twelve counted kernels (`cuda_build.launch_counts`).
-From phase 3 on, every binning launches the tile cover once: a path's
-expected launches hold one `bin_cover` a render (a B1, B6 or B5 launch),
-and the paths that bin otherwise (cached trajectory frames, the binning
-profiler, the FPS study, the roofline tool) give their own count. So with
+thirteen counted kernels (`cuda_build.launch_counts`).
+From phase 3 on, every binning launches the tile cover and the emission
+once each: a path's expected launches hold one `bin_cover` and one
+`bin_emit` a render (a B1, B6 or B5 launch), and the paths that bin
+otherwise (cached trajectory frames, the binning profiler, the FPS study,
+the roofline tool) give their own count, the emission's the cover's. So with
 the preprocess kernels: one `preprocess_forward` a render and one
 `preprocess_backward` a blend backward (B2), and the paths that preprocess
 otherwise (a keyframe's binning, the profilers' preprocess alone) give
 theirs. Each
 phase ends with its own seconds. Then a `{"kernels": [...]}` line of the
-twelve kernels, the card line, and the final `{"ok": true, "device": {...}}`
+thirteen kernels, the card line, and the final `{"ok": true, "device": {...}}`
 line.
 
 Bounds. `bound_ms` is the least time the card could take for a kernel's
@@ -466,6 +481,11 @@ BENCH_FINE_STEP_DIV = 20000
 # profiler's fresh frame against phase 3's serving frame, timed in turns.
 BENCH_BATCH_ARGS = ("--batch", "2", "--repeats", "3", "--iters", "3")
 PIECES_RATIO = (0.7, 1.5)  # sum of the binning pieces over the whole; outside it the split misses or repeats work
+# The binning profiler at the dense cell's size (3dgs-m360: 3 M Gaussians at 1237x822), uncut, where the binning's
+# device work sets its time. At the profiler's own 300k at 1920x1080 the binning is about 0.4 ms of device work, and
+# the host's launches after its one synchronise show in the whole's time but not in the pieces' timed back to back
+# (their sum read 0.669x the whole on an H100 80GB HBM3 at 700 W).
+PROFILE_BINNING_ARGS = ("--gaussians", "3000000", "--width", "1237", "--height", "822", "--cut", "0")
 FRESH_VS_SERVING = 1.5
 FRESH_GROUPS, FRESH_REPS = 5, 10  # the two frames' groups, taken in turns, and each group's calls
 # The tile cover (csrc/bin_cover.cu) against the torch chain: each kind of `synthetic.COVER_STRESS_KINDS` at the
@@ -477,6 +497,14 @@ COVER_STRESS_N = 65_536
 COVER_SCENE_N = 3_000_000
 COVER_BYTES = 28 + 40  # a Gaussian's mean, conic, opacity and radius in; five int64 out
 COVER_TARGET_MS = 0.15
+# The instance emission (csrc/bin_cover.cu, `lg_bin_emit`) against the plain emission: the stress set as the cover's,
+# with and without a cut, every Gaussian on the >32-tile fallback and all depths equal; the 3 M scene above; and the
+# benchmark's 4K scene (perfbench/configs/3dgs-bicycle-4k.json, drawn by perfbench/surface.py, ring angle 0). Its
+# bytes: a Gaussian's cover, prefix sum and depth read once; a slot's int32 key and int64 id written once.
+EMIT_GAUSSIAN_BYTES = 40 + 8 + 4
+EMIT_SLOT_BYTES = 4 + 8
+BICYCLE_CONFIG = REPO / "perfbench" / "configs" / "3dgs-bicycle-4k.json"
+BICYCLE_SEED = 2024
 # The preprocess kernels (csrc/preprocess.cu) against the chain: the stress set at 1237x822, and scenes drawn like
 # 3dgs-m360's (3 M, SH 3) and lg-m360's (1.02 M, SH 2). The backward against autograd of the chain: the JAX
 # suite's gradient tolerance, after dividing by autograd's largest magnitude (the chain rule's terms are added in
@@ -623,13 +651,16 @@ def read_counts() -> dict:
 
 def expected(counts: dict, want: dict) -> dict:
     """`want` over the keys of `counts`, 0 where it names none, with the
-    cover kernel's and the preprocess kernels' launches: by default one
-    binning and one preprocess forward a render (RENDER_BLENDS) and one
-    preprocess backward a blend backward (B2); a path that bins or
-    preprocesses otherwise names them."""
+    cover kernel's, the emission kernel's and the preprocess kernels'
+    launches: by default one binning and one preprocess forward a render
+    (RENDER_BLENDS) and one preprocess backward a blend backward (B2); a
+    path that bins or preprocesses otherwise names them. A binning launches
+    the cover and the emission once each, so the emission's launches are
+    the cover's unless the path names them."""
     renders = sum(want.get(k, 0) for k in RENDER_BLENDS)
     want = {"bin_cover": renders, "preprocess_forward": renders,
             "preprocess_backward": want.get("blend_backward", 0), **want}
+    want.setdefault("bin_emit", want["bin_cover"])
     return {k: want.get(k, 0) for k in counts}
 
 
@@ -948,6 +979,7 @@ def phase2(s: Smoke) -> dict:
     if counts["unchunk_transpose"] != len(UNCHUNK_SHAPES) or counts["issue_probe"] < 7:
         fail(f"B8 or the probe did not count its launches: {counts}")
     hold_cover_stress(s)
+    hold_emit_stress(s)
     hold_preprocess_stress(s)
 
     gen = torch.Generator(device=s.dev).manual_seed(7)
@@ -1110,7 +1142,8 @@ def hold_cover_stress(s: Smoke) -> None:
 def time_cover(s: Smoke) -> None:
     """The cover kernel at the benchmark's size: bit for bit against the
     chain on a 3 M-Gaussian scene drawn like 3dgs-m360's, then its time
-    beside its byte bound and the chain's time."""
+    beside its byte bound and the chain's time; then the emission on that
+    scene and on the 4K cell's (`time_emit`)."""
     from lightgaussian_tpu_torch.models.camera import Camera
     from lightgaussian_tpu_torch.ops.rasterize import binning
     from lightgaussian_tpu_torch.ops.rasterize.projection import preprocess
@@ -1138,6 +1171,141 @@ def time_cover(s: Smoke) -> None:
           f"{COVER_TARGET_MS} ms), bound {bound:.4f} ms ({n_bytes / 1e6:.0f} MB at {PEAK_BYTES / 1e12:.2f} TB/s, "
           f"{n_bytes / k_ms / 1e6:.0f} GB/s achieved), the torch chain {plain_ms:.3f} ms (host, median of "
           f"{PLAIN_REPS}); no PyTorch call computes a tile cover, library_ms null")
+    time_emit(s, splats, grid, COVER_SCENE_N, f"the 3 M scene at {COVER_SIZE[0]}x{COVER_SIZE[1]}", row=True)
+    del splats
+    splats, grid, n = bicycle_splats(s)
+    time_emit(s, splats, grid, n, f"the 4K cell's scene ({grid.width}x{grid.height})", row=False)
+
+
+def hold_emit(s: Smoke, cover, cum, depth, total: int, m: int, grid, what: str) -> dict:
+    """The emission kernel (`binning._emit` on the card, one launch of its
+    row) against the plain emission (`binning.plain_emit`, on the card too):
+    every slot's key and Gaussian equal. Returns a census of the slots."""
+    from lightgaussian_tpu_torch.ops.rasterize import binning
+
+    torch = s.torch
+    launched = read_counts()["bin_emit"]
+    key, gid = binning._emit(cover, cum, depth, total, m, grid)
+    s.sync()
+    if read_counts()["bin_emit"] != launched + 1:
+        fail(f"the emission on {what} did not launch its kernel once")
+    w_key, w_gid = binning.plain_emit(cover, cum, depth, total, m, grid)
+    bad = {"key": int((key != w_key).sum()), "gid": int((gid != w_gid).sum())}
+    census = {"slots": m, "live": total, "cut": total - m,
+              "fallback": int(torch.where(cover.mask == 0, cover.count, 0).sum()),
+              "top_bit": int((key >= 0).sum())}  # the flipped key is >= 0 where the key's top bit is set
+    s.say(f"  bin_emit vs the plain emission on {what}: {census}; differing keys and Gaussians: {bad}")
+    if any(bad.values()) or key.dtype != torch.int32 or gid.dtype != torch.int64:
+        fail(f"the emission kernel differs from the plain emission on {what}")
+    return census
+
+
+def emit_inputs(s: Smoke, splats, grid):
+    """The cover (the kernel's), its prefix sum and the live total."""
+    from lightgaussian_tpu_torch.ops.rasterize import binning
+
+    cover = binning._cover(splats, grid)
+    cum, total, _fallback = binning._instance_total(cover.count)
+    return cover, cum, total
+
+
+def split_cut(cover, cum) -> int:
+    """A cut one slot into the middle Gaussian of at least two instances."""
+    many = (cover.count >= 2).nonzero().flatten()
+    g = int(many[len(many) // 2])
+    return int(cum[g] - cover.count[g]) + 1
+
+
+def hold_emit_stress(s: Smoke) -> None:
+    """The emission kernel bit for bit against the plain emission on every
+    kind of the stress set: uncut, cut inside a Gaussian's instances, every
+    Gaussian on the fallback, all depths equal."""
+    from lightgaussian_tpu_torch.ops.rasterize import binning
+    from lightgaussian_tpu_torch.utils import synthetic
+
+    torch = s.torch
+    grid = binning.make_grid(*COVER_SIZE)
+    for i, kind in enumerate(synthetic.COVER_STRESS_KINDS):
+        splats = synthetic.cover_stress_splats(kind, COVER_STRESS_N, *COVER_SIZE, seed=20 + i, device=s.dev)
+        cover, cum, total = emit_inputs(s, splats, grid)
+        what = f"the {kind} stress set"
+        if total == 0:
+            s.say(f"  bin_emit: {what} has no live instance; bin_splats emits nothing")
+            continue
+        hold_emit(s, cover, cum, splats.depth, total, total, grid, what)
+        hold_emit(s, cover, cum, splats.depth, total, split_cut(cover, cum), grid, f"{what}, cut inside a Gaussian")
+        lo_x, lo_y, hi_x, _hi_y, rect = binning.tile_rect(splats.mean2d, splats.radius, grid, conic=splats.conic,
+                                                          opacity=splats.opacity)
+        fb = binning.TileCover(lo_x, lo_y, hi_x, torch.zeros_like(rect), rect)
+        fb_cum, fb_total, _ = binning._instance_total(rect)
+        hold_emit(s, fb, fb_cum, splats.depth, fb_total, fb_total, grid, f"{what}, every Gaussian on the fallback")
+        flat = torch.full_like(splats.depth, 4.0)
+        hold_emit(s, cover, cum, flat, total, total, grid, f"{what}, all depths equal")
+
+
+def bicycle_splats(s: Smoke):
+    """The 4K cell's scene and first frame: (splats, grid, Gaussians)."""
+    from lightgaussian_tpu_torch.ops.rasterize import binning
+    from lightgaussian_tpu_torch.ops.rasterize.projection import preprocess
+    from perfbench import inputs, port, surface
+
+    torch = s.torch
+    cfg = json.loads(BICYCLE_CONFIG.read_text())
+    p = inputs.truncate_sh(surface.gaussians(cfg, BICYCLE_SEED, s.dev), cfg["sh_degree"])
+    scene = port.scene(p, cfg["sh_degree"])
+    cam = port.camera(inputs.ring_eye(cfg, 0.0), np.zeros(3), cfg, s.dev)
+    with torch.no_grad():
+        splats = preprocess(scene, cam)
+    return splats, binning.make_grid(cfg["width"], cfg["height"]), cfg["num_gaussians"]
+
+
+def time_emit(s: Smoke, splats, grid, n: int, what: str, row: bool) -> None:
+    """The emission at a benchmark size: bit for bit against the plain
+    emission uncut and cut inside a Gaussian, then its time (CUDA events,
+    both launches) beside its byte bound and the plain emission's time; the
+    32-bit sort beside the int64 sort it replaced; and the binning's host
+    synchronises, read with `torch.cuda.set_sync_debug_mode("warn")`."""
+    import warnings
+
+    from lightgaussian_tpu_torch.ops.rasterize import binning
+
+    torch = s.torch
+    cover, cum, total = emit_inputs(s, splats, grid)
+    census = hold_emit(s, cover, cum, splats.depth, total, total, grid, what)
+    hold_emit(s, cover, cum, splats.depth, total, split_cut(cover, cum), grid, f"{what}, cut inside a Gaussian")
+    k_ms = s.event_ms(lambda: binning._emit(cover, cum, splats.depth, total, total, grid))
+    plain_ms = s.host_ms(lambda: binning.plain_emit(cover, cum, splats.depth, total, total, grid))
+    n_bytes = EMIT_GAUSSIAN_BYTES * n + EMIT_SLOT_BYTES * total
+    bound = n_bytes / PEAK_BYTES
+    if row:
+        s.row("bin_emit", "bin_cover.cu", "none: the slot fill and depth key of "
+              "lightgaussian_tpu/ops/rasterize/binning.py are XLA ops", 0.0, k_ms, plain_ms, 0.0, bound, None)
+    elif k_ms < 1e3 * bound:
+        fail(f"bin_emit was timed at {k_ms:.4f} ms on {what}, under its bound of {1e3 * bound:.4f} ms")
+    key, gid = binning._emit(cover, cum, splats.depth, total, total, grid)
+    key64 = key.to(torch.int64) + (1 << 31)
+    sort32_ms = s.event_ms(lambda: binning._sort_instances(key, gid))
+    sort64_ms = s.event_ms(lambda: binning._sort_instances(key64, gid))
+    s.say(f"  bin_emit on {what} ({n} Gaussians, {census['live']} slots, {census['fallback']} from the fallback): "
+          f"{k_ms:.4f} ms a call (CUDA events, {TIMING_REPS} calls of two launches), bound {1e3 * bound:.4f} ms "
+          f"({n_bytes / 1e6:.0f} MB at {PEAK_BYTES / 1e12:.2f} TB/s, {n_bytes / k_ms / 1e6:.0f} GB/s achieved), the "
+          f"plain emission {plain_ms:.3f} ms (host, median of {PLAIN_REPS}); the sort and gather of the 32-bit keys "
+          f"{sort32_ms:.4f} ms, of the same keys in int64 {sort64_ms:.4f} ms")
+    del key, gid, key64
+    syncs = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            binning.bin_splats(splats, grid, binning.MAX_CAPACITY)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = [str(w.message).splitlines()[0] for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+    s.sync()
+    s.say(f"  bin_splats on {what} under set_sync_debug_mode('warn'): {len(syncs)} synchronising call(s) {syncs}")
+    if len(syncs) != 1:
+        fail(f"bin_splats on {what} synchronised {len(syncs)} times, not once (the host read of the total)")
 
 
 def _bits_differ(a, b) -> int:
@@ -3056,23 +3224,24 @@ def phase9(s: Smoke, tmp: Path) -> dict:
 @contextlib.contextmanager
 def plain_kernels():
     """Within it, the training path's kernels (B1, B2, B3, B4, the tile
-    cover and the preprocess) run their plain PyTorch versions on the card:
-    the callers reach the wrappers as module attributes (the render reaches
-    the preprocess as `api.preprocess`)."""
+    cover, the emission and the preprocess) run their plain PyTorch versions
+    on the card: the callers reach the wrappers as module attributes (the
+    render reaches the preprocess as `api.preprocess`)."""
     from lightgaussian_tpu_torch.ops import losses
     from lightgaussian_tpu_torch.ops.rasterize import api, binning, blend, projection
 
-    saved = (blend.blend_forward, blend.blend_backward, losses.blur, losses.blur3, binning._cover, api.preprocess)
+    saved = (blend.blend_forward, blend.blend_backward, losses.blur, losses.blur3, binning._cover, binning._emit,
+             api.preprocess)
     blend.blend_forward = lambda ts, inst, grid: blend.plain_blend(ts, inst, grid, exact=True)[:2]
     blend.blend_backward = lambda ts, inst, gid, tg, tr, grid, n: blend.reduce_per_gaussian(
         blend.plain_blend_backward(ts, inst, tg, tr, grid)[0], gid, n)
     losses.blur, losses.blur3 = losses.plain_blur, losses.plain_blur3
-    binning._cover = binning.plain_cover
+    binning._cover, binning._emit = binning.plain_cover, binning.plain_emit
     api.preprocess = projection.plain_preprocess
     try:
         yield
     finally:
-        (blend.blend_forward, blend.blend_backward, losses.blur, losses.blur3, binning._cover,
+        (blend.blend_forward, blend.blend_backward, losses.blur, losses.blur3, binning._cover, binning._emit,
          api.preprocess) = saved
 
 
@@ -3108,8 +3277,8 @@ def phase10(s: Smoke, tmp: Path) -> dict:
         want = args.batch * bench.WIDTH * bench.HEIGHT / (line["median_ms"] * 1e-3)
         if set(line) != {"metric", "value", "unit", "median_ms", "spread_ms", "groups"} or abs(line["value"] - want) > 0.5:
             fail(f"{label}: the line {line} does not hold value = pixels / median ({want:.1f})")
-    # the bench step's gradients against the same loss through the plain versions of B1-B4, the cover and the
-    # preprocess, by B2's rules
+    # the bench step's gradients against the same loss through the plain versions of B1-B4, the cover, the emission
+    # and the preprocess, by B2's rules
     step = bench.setup(1, s.dev)
     loss_k, grads_k, live = step()
     with plain_kernels():
@@ -3120,14 +3289,15 @@ def phase10(s: Smoke, tmp: Path) -> dict:
             fail(f"the plain step launched kernels: {read_counts()}")
     worst = hold_gradients("the bench step against its plain kernels", grads_k, grads_p)
     rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    s.say(f"  bench step ({live} live instances) against the plain versions of B1-B4, the cover and the preprocess: "
-          f"loss {float(loss_k):.7f} vs {float(loss_p):.7f} (rel {rel:.2e}); largest gradient difference {worst:.2e} of "
-          f"its field's largest")
+    s.say(f"  bench step ({live} live instances) against the plain versions of B1-B4, the cover, the emission and "
+          f"the preprocess: loss {float(loss_k):.7f} vs {float(loss_p):.7f} (rel {rel:.2e}); largest gradient "
+          f"difference {worst:.2e} of its field's largest")
     del step, grads_k, grads_p
 
     # 10b: binning piece by piece, train form
     reset_counts()
-    r = profile_binning.run(profile_binning.build_parser().parse_args(["--device", DEVICE, "--out_root", str(tmp)]))
+    r = profile_binning.run(profile_binning.build_parser().parse_args(
+        [*PROFILE_BINNING_ARGS, "--device", DEVICE, "--out_root", str(tmp)]))
     s.sync()
     paths["profile_binning"] = read_counts()
     # the composition and the whole once each, then the cover piece and the whole timed both ways
@@ -3321,7 +3491,7 @@ def main() -> int:
                                else trainer_counts if name == "blend_count" else counts["train"])[name]
         row["launches_by_path"] = {path: c[name] for path, c in by_path.items() if c.get(name)}
     order = ("blend_forward", "blend_forward_fast", "blend_backward", "blur3", "blur", "blur5", "blend_count",
-             "unchunk_transpose", "issue_probe", "bin_cover", "preprocess_forward", "preprocess_backward")
+             "unchunk_transpose", "issue_probe", "bin_cover", "bin_emit", "preprocess_forward", "preprocess_backward")
     print(json.dumps({"kernels": [s.rows[k] for k in order]}))
     print(s.card)
     print(json.dumps({"ok": True, "device": {

@@ -17,14 +17,19 @@ index widths' (`MAX_CAPACITY`, the int32 `tile_starts`), not the JAX
 package's 2^24: a frame of more live instances than that raises, and a
 render given no cut (`MAX_CAPACITY`) renders every live instance.
 
-The key is held in int64; the depth's float32 bit pattern is read with
-`view(torch.int32)` (depths of binned splats are positive and finite).
+The depth's float32 bit pattern is read as an int32 (depths of binned
+splats are positive and finite). The key is below 2^32; it is sorted as an
+int32 with its top bit flipped (the key less 2^31), which a signed sort
+orders as the unsigned key.
 
-The tile cover, piece (a), is one CUDA kernel on CUDA tensors
-(`csrc/bin_cover.cu`, `lg_bin_cover`, a row of `utils/cuda_build.py`'s
-kernel table); on CPU tensors `plain_cover` runs it as the torch
-chain of `tile_rect` and `_exact_tile_mask`, whose outputs the kernel equals
-bit for bit on the card. The other pieces are torch ops on either device.
+Two pieces are CUDA kernels on CUDA tensors (`csrc/bin_cover.cu`, rows of
+`utils/cuda_build.py`'s kernel table): the tile cover, piece (a)
+(`lg_bin_cover`), and the instance emission, pieces (c) and (d)
+(`lg_bin_emit`: each slot's Gaussian, tile and key). On CPU tensors
+`plain_cover` and `plain_emit` run them as the torch chains the kernels
+replace (`tile_rect` + `_exact_tile_mask`; `_fill_slots` + `_depth_key`),
+whose outputs the kernels equal bit for bit on the card. The other pieces
+are torch ops on either device.
 """
 from __future__ import annotations
 
@@ -61,6 +66,10 @@ MAX_MASK_TILES = 32
 # Tile pixel-center boxes are inflated by this many pixels before the
 # intersection test, so it stays conservative under f32 rounding.
 _MASK_MARGIN_PX = 0.25
+
+# Blocks of the emission's depth-range pass, each of which writes the least
+# and greatest depth bit pattern of its share of the Gaussians.
+_RANGE_BLOCKS = 128
 
 # Instances of the binnings since the last reset: live (before any cut), cut
 # (past the capacity, dropped) and those of the >32-tile rect fallback.
@@ -354,18 +363,62 @@ def _depth_key(depth: torch.Tensor, gid: torch.Tensor, tile: torch.Tensor, grid:
     return (tile << depth_bits) | (rel >> shift)
 
 
+def plain_emit(cover: TileCover, cum: torch.Tensor, depth: torch.Tensor, total: int, m: int, grid: TileGrid):
+    """The instance emission as torch ops: `_fill_slots` + `_depth_key`, the
+    key stored as an int32 with its top bit flipped (the key less 2^31).
+    Returns (key int32 [m], gid int64 [m])."""
+    gid, tile = _fill_slots(cover, cum, total, m, grid)
+    key = _depth_key(depth, gid, tile, grid)
+    return (key - (1 << 31)).to(torch.int32), gid
+
+
+def _check_emit_inputs(cover: TileCover, cum: torch.Tensor, depth: torch.Tensor, total: int, m: int) -> None:
+    n = cum.shape[0] if cum.dim() == 1 else -1
+    for name, t in (*zip(TileCover._fields, cover), ("cum", cum)):
+        if t.dtype != torch.int64 or tuple(t.shape) != (n,):
+            raise ValueError(f"{name} must be torch.int64 [{n}], got {t.dtype} {list(t.shape)}")
+        if n > 0 and t.stride(0) != 1:
+            raise ValueError(f"{name} must be contiguous, got stride {t.stride()}")
+    if depth.dtype != torch.float32 or tuple(depth.shape) != (n,):
+        raise ValueError(f"depth must be torch.float32 [{n}], got {depth.dtype} {list(depth.shape)}")
+    for name, t in (*zip(TileCover._fields, cover), ("depth", depth)):
+        if t.device != cum.device:
+            raise ValueError(f"{name} on {t.device}, cum on {cum.device}")
+    if not 0 < m <= total <= MAX_CAPACITY:
+        raise ValueError(f"the emission takes 0 < m <= total <= MAX_CAPACITY, got m {m}, total {total}")
+
+
+def _emit(cover: TileCover, cum: torch.Tensor, depth: torch.Tensor, total: int, m: int, grid: TileGrid):
+    """(c) + (d) Each of the first m slots' Gaussian and its 32-bit flipped
+    (tile | depth) key: the emission kernel on CUDA tensors (two launches,
+    the depth range and the emission, counted as one), `plain_emit` on CPU
+    tensors."""
+    _check_emit_inputs(cover, cum, depth, total, m)
+    if not cuda_build.on_card(cum, "the instance emission"):
+        return plain_emit(cover, cum, depth, total, m, grid)
+    dev = cum.device
+    key = torch.empty(m, dtype=torch.int32, device=dev)
+    gid = torch.empty(m, dtype=torch.int64, device=dev)
+    partials = torch.empty(2 * _RANGE_BLOCKS, dtype=torch.int32, device=dev)
+    cuda_build.KERNELS["lg_bin_emit"](
+        key, *(t.data_ptr() for t in cover), cum.data_ptr(), depth.data_ptr(), key.data_ptr(), gid.data_ptr(),
+        partials.data_ptr(), cum.shape[0], m, depth.stride(0), grid.tiles_x, sort_key_bits(grid), _RANGE_BLOCKS)
+    return key, gid
+
+
 def _sort_instances(key: torch.Tensor, gid: torch.Tensor):
-    """(e) The stable sort by key, and the Gaussian of each sorted slot."""
+    """(e) The stable sort by the 32-bit flipped key, and the Gaussian of
+    each sorted slot."""
     key_s, order = torch.sort(key, stable=True)
     return key_s, gid[order]
 
 
 def _tile_starts(key_s: torch.Tensor, grid: TileGrid) -> torch.Tensor:
-    """(f) Each tile's first slot in the sorted keys (and the end)."""
-    tile_s = key_s >> sort_key_bits(grid)
-    return torch.searchsorted(
-        tile_s, torch.arange(grid.num_tiles + 1, dtype=torch.int64, device=key_s.device), side="left"
-    ).to(torch.int32)
+    """(f) Each tile's first slot in the sorted flipped keys (and the end):
+    tile t starts at the first key of at least t << depth_bits, flipped."""
+    tiles = torch.arange(grid.num_tiles + 1, dtype=torch.int64, device=key_s.device)
+    firsts = (tiles << sort_key_bits(grid)) - (1 << 31)
+    return torch.searchsorted(key_s, firsts.to(torch.int32), side="left", out_int32=True)
 
 
 def _gather_features(splats: Splats, gid_s: torch.Tensor) -> torch.Tensor:
@@ -400,8 +453,7 @@ def bin_splats(splats: Splats, grid: TileGrid, max_instances: int) -> Binning:
             gid_sorted=torch.zeros(0, dtype=torch.int64, device=dev),
             num_gaussians=n,
         )
-    gid, tile = _fill_slots(cover, cum, total, m, grid)
-    key = _depth_key(splats.depth, gid, tile, grid)
+    key, gid = _emit(cover, cum, splats.depth, total, m, grid)
     key_s, gid_s = _sort_instances(key, gid)
     tile_starts = _tile_starts(key_s, grid)
     inst = _gather_features(splats, gid_s)

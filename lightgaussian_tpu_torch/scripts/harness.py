@@ -132,7 +132,7 @@ def trace_summary(trace_json) -> dict:
       streams (the idle share of a step divides it by a step run without the
       profiler, which slows the host: `profile_step` does);
     - `launches`: kernel events by name, and `hand_written` those of the
-      twelve counted kernels of `cuda_build.KERNELS` by launch counter,
+      thirteen counted kernels of `cuda_build.KERNELS` by launch counter,
       matched by each row's `device_name`;
     - `top_ops`: the TOP device ops by total time, (name, total, count);
     - `gaps`: the TOP longest idle stretches inside the window, (start,

@@ -1,14 +1,17 @@
 """Where binning's time goes: `bin_splats` piece by piece, in its train form.
 
-Port of `scripts/profile_binning.py`, at its operating point: 300,000
-Gaussians (SH 3) at 1920x1080 from the bench's camera, instance cut
-1,114,112. Each of the pieces `bin_splats` runs, in its order (the private
-helpers of `ops/rasterize/binning.py`, so the profile times the code the
-path runs):
+Port of `scripts/profile_binning.py`, by default at its operating point:
+300,000 Gaussians (SH 3) at 1920x1080 from the bench's camera, instance cut
+1,114,112; `--gaussians`, `--width`, `--height` and `--cut` set another
+(the benchmark's cells: 3,000,000 or 1,020,000 at 1237x822 and 6,100,000 at
+3840x2160, `--cut 0` keeping every live instance). The scene is
+`random_scene`'s cube of small splats, seen from `default_camera`. Each of
+the pieces `bin_splats` runs, in its order (the private helpers of
+`ops/rasterize/binning.py`, so the profile times the code the path runs):
 
-  (a) `tile_rect` + `_exact_tile_mask`   (b) cumsum + the host read of the total
-  (c) slot -> (Gaussian, tile) fill      (d) the range-adaptive depth key
-  (e) the sort + the gid gather          (f) searchsorted for tile_starts
+  (a) the tile cover                       (b) cumsum + the host read of the total
+  (c-d) the emission: each slot's Gaussian, tile and 32-bit (tile | depth) key
+  (e) the sort + the gid gather            (f) searchsorted for tile_starts
   (g) `pack_features` + the row gather
 
 is timed two ways on the inputs the pieces before it made: between CUDA
@@ -23,7 +26,8 @@ counterpart here: scatter-marks + `cummax` for the slot fill, the 1-key /
 2-payload sorts, the `pre_pos` permutation and the chunk transpose (the
 port keeps instances instance-major and reduces with atomics).
 
-Usage: python -m lightgaussian_tpu_torch.scripts.profile_binning [--device cuda] [--out_root DIR]
+Usage: python -m lightgaussian_tpu_torch.scripts.profile_binning [--device cuda] [--gaussians N] [--width W]
+       [--height H] [--cut M] [--out_root DIR]
 """
 from __future__ import annotations
 
@@ -43,8 +47,8 @@ WIDTH, HEIGHT = 1920, 1080
 N_GAUSS = 300_000
 CAP = 1_114_112
 REPS = 20
-PIECES = ("(a) tile_rect + exact mask", "(b) cumsum + host read of the total", "(c) slot fill (gid, tile)",
-          "(d) depth key", "(e) sort + gid gather", "(f) searchsorted tile_starts", "(g) pack_features + row gather")
+PIECES = ("(a) tile cover", "(b) cumsum + host read of the total", "(c-d) emission (gid, tile, 32-bit key)",
+          "(e) sort + gid gather", "(f) searchsorted tile_starts", "(g) pack_features + row gather")
 
 
 def compose(splats, grid, cap: int):
@@ -56,16 +60,14 @@ def compose(splats, grid, cap: int):
     m = min(total, B.instance_capacity(cap))
     if m == 0:
         raise ValueError("no live instance to bin")
-    gid, tile = B._fill_slots(cover, cum, total, m, grid)
-    key = B._depth_key(splats.depth, gid, tile, grid)
+    key, gid = B._emit(cover, cum, splats.depth, total, m, grid)
     key_s, gid_s = B._sort_instances(key, gid)
     starts = B._tile_starts(key_s, grid)
     inst = B._gather_features(splats, gid_s)
     calls = [
         lambda: B._cover(splats, grid),
         lambda: B._instance_total(cover.count),
-        lambda: B._fill_slots(cover, cum, total, m, grid),
-        lambda: B._depth_key(splats.depth, gid, tile, grid),
+        lambda: B._emit(cover, cum, splats.depth, total, m, grid),
         lambda: B._sort_instances(key, gid),
         lambda: B._tile_starts(key_s, grid),
         lambda: B._gather_features(splats, gid_s),
@@ -100,12 +102,17 @@ def time_pieces(splats, grid, cap: int, dev: torch.device, reps: int = REPS) -> 
 def run(args) -> dict:
     dev = resolve_device(args.device)
     card = harness.card_line(dev)
-    print(f"profile_binning on {card}: {N_GAUSS} Gaussians SH 3 at {WIDTH}x{HEIGHT}, cut {CAP}, {REPS} calls a row")
-    scene = random_scene(n=N_GAUSS, seed=0, extent=2.0, scale_range=(0.004, 0.02), active_sh_degree=3, device=dev)
-    cam = default_camera(width=WIDTH, height=HEIGHT, dist=5.0, device=dev)
+    cap = args.cut or B.MAX_CAPACITY
+    print(f"profile_binning on {card}: {args.gaussians} Gaussians SH 3 at {args.width}x{args.height}, cut {cap}, "
+          f"{REPS} calls a row")
+    scene = random_scene(n=args.gaussians, seed=0, extent=2.0, scale_range=(0.004, 0.02), active_sh_degree=3,
+                         device=dev)
+    cam = default_camera(width=args.width, height=args.height, dist=5.0, device=dev)
     with torch.no_grad():
         splats = preprocess(scene, cam)
-    result = {"card": card, **time_pieces(splats, B.make_grid(WIDTH, HEIGHT), CAP, dev)}
+    del scene
+    result = {"card": card, "gaussians": args.gaussians, "width": args.width, "height": args.height,
+              **time_pieces(splats, B.make_grid(args.width, args.height), cap, dev)}
     out = Path(args.out_root or harness.default_out_root()) / "profile_binning.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
@@ -115,6 +122,10 @@ def run(args) -> dict:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="bin_splats piece by piece")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--gaussians", type=int, default=N_GAUSS, help=f"Gaussians of the scene (default {N_GAUSS})")
+    p.add_argument("--width", type=int, default=WIDTH, help=f"image width in pixels (default {WIDTH})")
+    p.add_argument("--height", type=int, default=HEIGHT, help=f"image height in pixels (default {HEIGHT})")
+    p.add_argument("--cut", type=int, default=CAP, help=f"instance cut (default {CAP}; 0 keeps every live instance)")
     p.add_argument("--out_root", type=Path, default=None, help="where profile_binning.json goes (default: the "
                    "temporary directory)")
     return p

@@ -176,6 +176,9 @@ KERNELS = {k.symbol: k for k in (
            r"unchunk_transpose_kernel"),
     Kernel("lg_issue_probe", "issue_probe.cu", [_P, _P, _I, _I, _F, _F, _I, _P], "issue_probe", r"probe_kernel"),
     Kernel("lg_bin_cover", "bin_cover.cu", [_P] * 9 + [_I] * 7 + [_P], "bin_cover", r"bin_cover_kernel"),
+    # the cover's five rows, cum, depth, key, gid, the range pairs; n, m, depth stride, tiles_x, depth bits, range
+    # blocks. Its launch is the emission; the depth-range pass before it is not counted.
+    Kernel("lg_bin_emit", "bin_cover.cu", [_P] * 10 + [_I] * 6 + [_P], "bin_emit", r"bin_emit_kernel"),
     # inputs, camera, 6 outputs; a row stride per input; n, K, degree, width, height; scale_modifier
     Kernel("lg_preprocess_forward", "preprocess.cu", [_P] * 21 + [_I] * 15 + [_F, _P], "preprocess_forward",
            r"preprocess_forward_kernel"),

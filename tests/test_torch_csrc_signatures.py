@@ -49,7 +49,8 @@ def test_every_source_has_entry_points():
     sources = {src for src, _ in ENTRY_POINTS.values()}
     assert sources == {p.name for p in cuda_build.CSRC.glob("*.cu")} == {p.name for p in cuda_build.SOURCES}
     assert {"lg_blend_forward", "lg_blend_forward_fast", "lg_blend_count", "lg_blend_backward",
-            "lg_ssim_blur", "lg_bin_cover", "lg_preprocess_forward", "lg_preprocess_backward"} <= set(ENTRY_POINTS)
+            "lg_ssim_blur", "lg_bin_cover", "lg_bin_emit", "lg_preprocess_forward",
+            "lg_preprocess_backward"} <= set(ENTRY_POINTS)
 
 
 @pytest.mark.parametrize("symbol", sorted(ENTRY_POINTS))
@@ -67,7 +68,7 @@ def test_argtypes_match_the_c_parameters(symbol):
 def test_no_loader_registers_a_missing_symbol():
     assert set(cuda_build.KERNELS) == set(ENTRY_POINTS)
     counted = [k for k in cuda_build.KERNELS.values() if k.name]
-    assert len({k.name for k in counted}) == len(counted) == 12
+    assert len({k.name for k in counted}) == len(counted) == 13
     assert all(k.device_name for k in counted)
     assert [k.symbol for k in cuda_build.KERNELS.values() if not k.name] == ["lg_instance_cull"]
 
@@ -105,6 +106,8 @@ def _meta_inputs():
         "blur5": lambda: losses.blur5(planes, planes),
         "run_chain": lambda: issue_probe.run_chain(torch.zeros(issue_probe.GRANULE, device=meta), "mul", 1),
         "bin_splats": lambda: binning.bin_splats(splats, grid, 1 << 10),
+        "emit": lambda: binning._emit(binning.TileCover(*torch.zeros((5, n), dtype=torch.int64, device=meta)),
+                                      torch.zeros(n, dtype=torch.int64, device=meta), splats.depth, n, n, grid),
         "preprocess": lambda: projection.preprocess(scene, camera),
     }
 

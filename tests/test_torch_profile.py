@@ -247,7 +247,8 @@ def test_trace_summary_on_a_hand_written_trace(tmp_path):
     assert got["launches"] == {B1_NAME: 2, B2_NAME: 1, B3_NAME: 1, B4_NAME: 1, ELEMENTWISE: 1, B7_MANGLED: 1}
     assert got["hand_written"] == {"blend_forward": 2, "blend_forward_fast": 0, "blend_count": 0, "blend_backward": 1,
                                    "blur": 1, "blur3": 1, "blur5": 1, "unchunk_transpose": 0, "issue_probe": 0,
-                                   "bin_cover": 0, "preprocess_forward": 0, "preprocess_backward": 0}
+                                   "bin_cover": 0, "bin_emit": 0, "preprocess_forward": 0,
+                                   "preprocess_backward": 0}
     assert got["top_ops"] == [(B1_NAME, 100.0, 2), (B2_NAME, 60.0, 1), (B3_NAME, 40.0, 1), (B4_NAME, 30.0, 1),
                               ("Memcpy DtoH (Device -> Pageable)", 20.0, 1), ("Memset (Device)", 10.0, 1),
                               (B7_MANGLED, 10.0, 1), (ELEMENTWISE, 5.0, 1)]
